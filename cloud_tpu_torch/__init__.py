@@ -1,0 +1,22 @@
+"""cloud_tpu_torch: the PyTorch/CUDA port of `cloud_tpu`.
+
+Same module paths and public names as the JAX package, written in
+PyTorch for an NVIDIA H100. This package imports torch, numpy and the
+standard library only; its kernels are CUDA C++ sources under
+`ops/csrc/`, compiled with nvcc at first use. Entry points run on the
+CUDA card unless the caller passes `device="cpu"`, where each kernel's
+plain PyTorch version runs instead.
+
+Ported so far: paged decode attention (fp and int8 pages), decode-mode
+`TransformerLM`, `generate()`, and the plain serving path
+(`Scheduler` -> `DecodeEngine`).
+"""
+
+from cloud_tpu_torch import models, ops, serving
+from cloud_tpu_torch.models import TransformerLM, generate, params_from_flax
+from cloud_tpu_torch.serving import (DecodeEngine, Scheduler, ServeRequest,
+                                     ServeResult)
+
+__all__ = ["DecodeEngine", "Scheduler", "ServeRequest", "ServeResult",
+           "TransformerLM", "generate", "models", "ops", "params_from_flax",
+           "serving"]

@@ -1,0 +1,255 @@
+"""Paged KV-cache pool: host-side physical page accounting.
+
+A copy of `PagePool` from `cloud_tpu/serving/kvpool.py`. The physical
+pages live on the device in the paged decode cache
+(`key_pages`/`value_pages` `[num_pages, page_size, H, D]` per attention
+layer, `TransformerLM.init_cache`); this module owns WHICH pages each
+request holds. Reservation happens at admission, so exhaustion
+surfaces as scheduler backpressure (a blocked reserve), never as an
+out-of-memory error.
+
+Page 0 is the scratch page: it is never handed out, and every freed or
+never-filled page-table entry points at it. Inactive slots write their
+masked, never-attended tick output there.
+
+Pages are reference counted (`reserve` hands out pages at refcount 1,
+`share` adds a holder, `free` drops one and recycles the page when the
+last holder lets go).
+"""
+
+import threading
+
+import numpy as np
+
+
+class PagePool:
+    """Refcounting free-list allocator over `num_pages` physical pages.
+
+    Thread-safe; `reserve` blocks (condition wait) until enough pages
+    are free, which is the backpressure primitive the scheduler builds
+    on. All bookkeeping is host-side python — the device never sees
+    this object, only the page-id vectors it emits.
+    """
+
+    def __init__(self, num_pages, page_size, pages_per_slot,
+                 page_dtype="", page_bytes=0):
+        if num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is the "
+                             "scratch page); got {}.".format(num_pages))
+        if page_size < 1 or pages_per_slot < 1:
+            raise ValueError("page_size and pages_per_slot must be "
+                             ">= 1.")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.pages_per_slot = int(pages_per_slot)
+        # Byte accounting for the KV-hierarchy gauges: page_dtype is
+        # the storage dtype name ("" = the engine compute dtype,
+        # "int8" = quantized pages) and page_bytes the device
+        # bytes ONE physical page costs summed over every attention
+        # layer (K + V + scale sidecars). Zero when the engine doesn't
+        # wire it (pool used standalone in tests).
+        self.page_dtype = str(page_dtype)
+        self.page_bytes = int(page_bytes)
+        self._cond = threading.Condition()
+        # LIFO free list: recently-freed pages are re-handed first
+        # (warm in whatever cache hierarchy the backend keeps).
+        self._free = list(range(1, self.num_pages))
+        self._refs = {}  # page id -> holder count, allocated pages only
+        self._cow_copies = 0
+        self._reserve_waiters = 0
+        self._prefilling = 0
+        self._closed = False
+
+    @property
+    def capacity(self):
+        """Allocatable pages (scratch excluded)."""
+        return self.num_pages - 1
+
+    def available(self):
+        with self._cond:
+            return len(self._free)
+
+    def pages_needed(self, prompt_tokens, max_new_tokens, slack=0):
+        """Pages a request holds for its lifetime: one slot writes
+        `prompt + max_new - 1` cache positions (the final sampled token
+        is returned but never written back). `slack` adds positions the
+        slot may transiently overshoot into — the speculative tick
+        writes up to `spec_k` draft positions past the last committed
+        token before rewinding."""
+        tokens = prompt_tokens + max(int(max_new_tokens) - 1, 0) + slack
+        need = -(-tokens // self.page_size)  # ceil
+        if need > self.pages_per_slot:
+            raise ValueError(
+                "request needs {} pages but a slot addresses only {} "
+                "({} tokens / page_size {}).".format(
+                    need, self.pages_per_slot,
+                    self.pages_per_slot * self.page_size,
+                    self.page_size))
+        return need
+
+    def reserve(self, n, timeout=None):
+        """Takes `n` pages off the free list, blocking until available.
+
+        Returns the list of page ids (each at refcount 1), or None on
+        timeout/close. A request for more than `capacity` pages raises
+        immediately — waiting could never succeed (the deadlock the
+        scheduler's submit-time validation also rejects).
+        """
+        n = int(n)
+        if n == 0:
+            return []
+        if n > self.capacity:
+            raise ValueError(
+                "cannot reserve {} pages from a pool of {} allocatable "
+                "pages.".format(n, self.capacity))
+        with self._cond:
+            # The waiter count only becomes observable while wait_for
+            # actually releases the lock, so the gauge reads as "threads
+            # currently blocked on page reservation" — live backpressure.
+            self._reserve_waiters += 1
+            try:
+                ok = self._cond.wait_for(
+                    lambda: self._closed or len(self._free) >= n,
+                    timeout=timeout)
+            finally:
+                self._reserve_waiters -= 1
+            if self._closed or not ok:
+                return None
+            pages = [self._free.pop() for _ in range(n)]
+            for pid in pages:
+                self._refs[pid] = 1
+            return pages
+
+    def share(self, page_ids):
+        """Adds one holder to each already-allocated page (prefix-cache
+        hit: a new request maps populated pages into its table)."""
+        with self._cond:
+            for pid in page_ids:
+                pid = int(pid)
+                if pid not in self._refs:
+                    raise ValueError(
+                        "cannot share unallocated page {}.".format(pid))
+                self._refs[pid] += 1
+
+    def refcount(self, page_id):
+        """Current holder count for a page (0 when free)."""
+        with self._cond:
+            return self._refs.get(int(page_id), 0)
+
+    def free(self, page_ids):
+        """Drops one holder per page; recycles pages whose last holder
+        let go and wakes blocked reservers."""
+        if not page_ids:
+            return
+        with self._cond:
+            recycled = False
+            for pid in page_ids:
+                pid = int(pid)
+                if not 1 <= pid < self.num_pages:
+                    raise ValueError(
+                        "page id {} outside pool [1, {}).".format(
+                            pid, self.num_pages))
+                refs = self._refs.get(pid, 0)
+                if refs <= 0:
+                    raise ValueError(
+                        "double free of page {}.".format(pid))
+                if refs == 1:
+                    del self._refs[pid]
+                    self._free.append(pid)
+                    recycled = True
+                else:
+                    self._refs[pid] = refs - 1
+            if recycled:
+                self._cond.notify_all()
+
+    def reserve_waiters(self):
+        """Threads currently blocked inside reserve() (backpressure)."""
+        with self._cond:
+            return self._reserve_waiters
+
+    def squeeze(self, n):
+        """Confiscates up to `n` FREE pages immediately (no blocking, a
+        partial take is fine) — the chaos `pool_squeeze` primitive: a
+        noisy neighbor claiming HBM that admission backpressure must
+        absorb. The taken pages are ordinary refcount-1 allocations, so
+        returning them is a plain free() and the leak detector treats a
+        squeeze holder like any other."""
+        n = int(n)
+        with self._cond:
+            take = min(n, len(self._free))
+            pages = [self._free.pop() for _ in range(take)]
+            for pid in pages:
+                self._refs[pid] = 1
+            return pages
+
+    def note_cow(self, n=1):
+        """Counts a copy-on-write page reconstruction (telemetry)."""
+        with self._cond:
+            self._cow_copies += int(n)
+
+    def note_prefill_hold(self, n):
+        """Marks `n` already-reserved pages as held by an in-flight
+        (chunked) prefill — occupancy accounting only, no allocation.
+        A multi-chunk prefill holds its pages for several ticks before
+        its slot insert, so `pages_prefilling` splits `pages_held`
+        into decoding vs still-prefilling for the SERVE_* gauges."""
+        with self._cond:
+            self._prefilling += int(n)
+
+    def note_prefill_release(self, n):
+        """Drops `n` pages from the prefill-hold count (the prefill
+        inserted, failed, or was drained — the pages themselves move
+        or free separately)."""
+        with self._cond:
+            self._prefilling -= int(n)
+            if self._prefilling < 0:
+                raise ValueError(
+                    "prefill-hold underflow: released more prefilling "
+                    "pages than held.")
+
+    def pool_stats(self):
+        """Point-in-time accounting: free/held/shared page counts, CoW
+        copies since construction, and a holder-count histogram
+        ({refcount: pages}) — the raw material for the SERVE_* gauges
+        and the refcount leak detector."""
+        with self._cond:
+            hist = {}
+            for refs in self._refs.values():
+                hist[refs] = hist.get(refs, 0) + 1
+            return {
+                "pages_free": len(self._free),
+                "pages_held": len(self._refs),
+                "pages_shared": sum(1 for r in self._refs.values()
+                                    if r >= 2),
+                "pages_prefilling": self._prefilling,
+                "cow_copies": self._cow_copies,
+                "reserve_waiters": self._reserve_waiters,
+                "refcount_hist": hist,
+                "page_dtype": self.page_dtype,
+                "kv_bytes_held": len(self._refs) * self.page_bytes,
+                "kv_bytes_total": self.capacity * self.page_bytes,
+            }
+
+    def leak_report(self):
+        """Pages still held, with holder counts. A drained scheduler
+        (all requests complete, prefix cache cleared) must see {} here
+        — anything else is a refcount leak."""
+        with self._cond:
+            return dict(self._refs)
+
+    def close(self):
+        """Unblocks every waiting reserve with None (shutdown path)."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+
+    def page_vec(self, page_ids):
+        """A full-width page-table row for `page_ids`: the reserved ids
+        in logical order, scratch (0) beyond them. Fixed [pages_per_slot]
+        shape keeps the insert executable monomorphic."""
+        vec = np.zeros((self.pages_per_slot,), np.int32)
+        vec[:len(page_ids)] = page_ids
+        return vec
+
+
+__all__ = ["PagePool"]

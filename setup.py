@@ -30,8 +30,10 @@ setup(
                  "and pods."),
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["cloud_tpu", "cloud_tpu.*"]),
-    package_data={"cloud_tpu.tuner": ["api/*.json"]},
+    packages=find_packages(include=["cloud_tpu", "cloud_tpu.*",
+                                    "cloud_tpu_torch", "cloud_tpu_torch.*"]),
+    package_data={"cloud_tpu.tuner": ["api/*.json"],
+                  "cloud_tpu_torch.ops": ["csrc/*.cu"]},
     python_requires=">=3.9",
     install_requires=dependencies.make_required_install_packages(),
     extras_require=dependencies.make_required_extra_packages(),
