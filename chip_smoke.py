@@ -7,24 +7,48 @@ toolkit (nvcc):
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from `cloud_tpu_torch/ops/csrc/`
-(nvcc, sm_90a, into the gitignored `build/`), then:
+(nvcc, sm_90a, one process per source, into the gitignored `build/`),
+then:
 
 1. prints the card (torch's name, and nvidia-smi's name and power
    limit);
-2. holds each kernel against its plain PyTorch version on the card at
-   the served shapes (slots 8, H 12, D 64, page 16, 64 pages per slot,
-   bf16; seq 1 and 4; shared pages, an evicted slot, garbage in the
-   scratch page; int8 pages with a zero-scale page), requires exact
-   zeros on masked rows, and times kernel, plain version, bound and
-   the library yardstick (gathered view + scaled_dot_product_attention,
-   which the port never calls);
-3. serves 16 requests through `Scheduler` on GPT-2 small (random
+2. holds each paged-attention kernel against its plain PyTorch version
+   on the card at the served shapes (slots 8, H 12, D 64, page 16, 64
+   pages per slot, bf16; seq 1 and 4; shared pages, an evicted slot,
+   garbage in the scratch page; int8 pages with a zero-scale page),
+   requires exact zeros on masked rows, and times kernel, plain
+   version, bound and the library yardstick (gathered view +
+   scaled_dot_product_attention, which the port never calls);
+3. holds the three flash-attention kernels (forward, dq, dk/dv),
+   called through the public `flash_attention` and `torch.autograd`,
+   against `mha_reference` in f32 on the same inputs and its autograd
+   gradients, element by element: out, lse, dq, dk, dv at the GPT-2
+   training shape (B 8, S 1024, H 12, D 64, causal; bf16 and f32), a
+   Llama shape (B 2, S 2048, H 32, H_kv 8, D 128, bf16), and at the
+   GPT-2 shape with a key mask that leaves rows with no key, window
+   256, softcap 50 (logits scaled to reach the cap), S 1000 and
+   causal=False; then times each kernel at the GPT-2 shape beside its
+   bound, the plain version and scaled_dot_product_attention (forward;
+   forward + backward), which the port never calls;
+4. serves 16 requests through `Scheduler` on GPT-2 small (random
    weights from a seed), with fp pages; checks that every tick went
    through the kernel, that sampled requests equal solo `generate()`
    and that greedy tokens agree with an f32 teacher-forced forward;
-4. does the same with int8 pages and 8 requests, then times 20 ticks
+5. does the same with int8 pages and 8 requests, then times 20 ticks
    of a full engine under torch.profiler (device busy share);
-5. prints the kernel table as one JSON line, the card line, and the
+6. trains GPT-2 small (bf16, batch 8, seq 1024) with
+   `Trainer(optimizer=adamw on a warmup-cosine schedule).fit` for
+   TRAIN_EPOCHS epochs of TRAIN_STEPS steps on synthetic sequences
+   whose next token the current token says nothing of but the one
+   before it fixes: checks one step's loss and every
+   parameter's gradient norm against the same step with attention by
+   the plain version, that every step launched each flash kernel once
+   per layer, and that the last epoch's loss fell well below the
+   entropy of the next token given the current one (only attention to
+   earlier positions gets there); times steps (p50, tokens/s, MFU,
+   device busy share under torch.profiler); then `evaluate` and
+   `predict` on held-out sequences;
+7. prints the kernel table as one JSON line, the card line, and the
    contract line `{"ok": true, "device": {...}}` last.
 
 Any failure raises and exits non-zero. Without a CUDA card, or without
@@ -44,6 +68,42 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 KERNEL_TOL = 2e-2                  # bf16 outputs, as the JAX suite
+# Flash kernels against their plain versions run in f32 on the same
+# inputs (the forward: mha_reference; dq and dk/dv: mha_backward_reference
+# given the delta = rowsum(dO O) the backward computed from the forward's
+# output), element by element: |kernel - plain| <= rtol |plain| +
+# atol rms(row), where a row is the D values of one (example, position,
+# head) of out, dq, dk or dv, and rms(row) is at least ROW_FLOOR times the
+# rms of the whole tensor (rows that are 0 in exact arithmetic, such as dq
+# of a row that sees one key, are rounding noise in both versions). bf16:
+# rtol 2^-8 covers the rounding of the kernels' outputs to bf16 (at most
+# 2^-9 relative); atol covers the roundings inside (P and dS to bf16
+# before the second product), which add up over a row's terms as the
+# row's value does. f32: summation order only. lse (f32 in both) within
+# 1e-3 absolute (bf16) and 1e-4 (f32).
+FLASH_TOL = {"bf16": {"rtol": 2.0 ** -8, "atol": 3e-2, "lse": 1e-3},
+             "f32": {"rtol": 0.0, "atol": 1e-4, "lse": 1e-4}}
+ROW_FLOOR = 1e-2
+# End to end, the gradients against mha_reference's autograd in f32 (whose
+# delta comes from the exact O): max |kernel - plain| within this share of
+# max |plain|. The bf16 O moves delta by up to ~2^-9 |dO| |O|, which in a
+# row with few keys outweighs that row's dq; this reading is the whole
+# backward's, printed beside the per-element one.
+END_TO_END_TOL = {"bf16": 3e-2, "f32": 1e-4}
+# Training one-step check, kernels against the plain attention on the
+# same bf16 model and batch: the loss within 2e-3 relative, each
+# parameter's gradient norm within 3e-2 relative.
+STEP_LOSS_TOL, STEP_GRAD_TOL = 2e-3, 3e-2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_EPOCHS, TRAIN_STEPS = 8, 1024, 6, 20
+# AdamW's peak learning rate, warmed up over the first tenth of the
+# steps, then cosine decay to 0.
+TRAIN_LR = 3e-4
+# The last epoch's mean loss must be below this share of the entropy of
+# the next token given the current one alone, measured on the training
+# data (about 3.9 nats): a model that sees only the current token and
+# its position cannot get below that entropy; information from earlier
+# tokens reaches a position only through the attention layers.
+LOSS_FALL = 0.75
 SLOTS, HEADS, HEAD_DIM, PAGE, PAGES_PER_SLOT = 8, 12, 64, 16, 64
 GPT2_SMALL = dict(vocab_size=50257, num_layers=12, num_heads=12,
                   d_model=768, d_ff=3072, max_seq_len=1024, norm_eps=1e-5)
@@ -89,6 +149,43 @@ def timed_ms(fn, reps=7, iters=20):
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+def backward_ms(out, leaves, grad, iters=10):
+    """Device time per call of a backward alone (`torch.autograd.grad`
+    through `out`'s graph, kept with retain_graph): the summed duration
+    of the device kernels of `iters` eager calls under torch.profiler,
+    over `iters`. A CUDA graph cannot hold this backward (the capture
+    fails on the graph's AccumulateGrad streams), and CUDA events around
+    eager calls would time the host, whose launches take as long as
+    scaled_dot_product_attention's backward kernels. Returns (device ms,
+    kernels per call)."""
+    import torch
+
+    def call():
+        return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    call()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    kernels = [evt for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False)]
+    total = sum(evt.time_range.elapsed_us() for evt in kernels)
+    return total / 1e3 / iters, len(kernels) / iters
+
+
+def bound_of(cost):
+    """(least time in ms, "bytes" or "operations") for a cost dict of
+    flops and bytes on an H100 (bf16 tensor-core peak)."""
+    t_bytes = cost["bytes_moved"] / HBM_BYTES_PER_S
+    t_ops = cost["flops"] / PEAK_FLOPS["bf16"]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def nvidia_smi_line():
@@ -256,7 +353,7 @@ def check_kernels(device):
     return rows
 
 
-# -- phases 3 and 4: serving -----------------------------------------
+# -- phases 4 and 5: serving -----------------------------------------
 
 def serve(model, ref_model, n_requests, n_sampled, kv_dtype, seed):
     import torch
@@ -406,6 +503,524 @@ def tick_breakdown(model):
     return out
 
 
+# -- phase 3: flash attention against its plain version --------------
+
+FLASH_CASES = (
+    # name, dtype, (B, S, H, H_kv, D), kwargs, mask kind, q scale
+    ("gpt2_bf16", "bf16", (8, 1024, 12, 12, 64), dict(causal=True), None, 1),
+    ("gpt2_f32", "f32", (8, 1024, 12, 12, 64), dict(causal=True), None, 1),
+    ("llama_bf16", "bf16", (2, 2048, 32, 8, 128), dict(causal=True), None,
+     1),
+    ("gpt2_mask", "bf16", (8, 1024, 12, 12, 64), dict(causal=True), "dead",
+     1),
+    ("gpt2_window", "bf16", (8, 1024, 12, 12, 64),
+     dict(causal=True, window=256), None, 1),
+    # q x 30: logits of std 30, so the cap of 50 bends most of them and
+    # its derivative 1 - tanh^2 ranges over (0, 1].
+    ("gpt2_softcap", "bf16", (8, 1024, 12, 12, 64),
+     dict(causal=True, logit_softcap=50.0), None, 30),
+    ("gpt2_s1000", "bf16", (8, 1000, 12, 12, 64), dict(causal=True), None,
+     1),
+    ("gpt2_noncausal", "bf16", (8, 1024, 12, 12, 64), dict(causal=False),
+     None, 1),
+)
+
+
+def flash_inputs(rng, dtype, shape, mask_kind, device, q_scale=1):
+    import torch
+
+    batch, seq, heads, kv_heads, head_dim = shape
+    tdtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+    def t(h, scale=1):
+        x = rng.standard_normal((batch, seq, h, head_dim), dtype=np.float32)
+        return torch.tensor(x * scale, dtype=tdtype, device=device)
+
+    q, k, v, dout = t(heads, q_scale), t(kv_heads), t(kv_heads), t(heads)
+    mask = None
+    if mask_kind == "dead":
+        m = rng.random((batch, seq)) < 0.8
+        m[0] = False          # every row of example 0: no allowed key
+        m[1, :100] = False    # rows 0..99 of example 1: no allowed key
+        mask = torch.tensor(m, device=device)
+    return q, k, v, dout, mask
+
+
+def reference_lse(q, k, mask, causal=True, window=None, logit_softcap=None):
+    """logsumexp of the plain version's masked f32 logits, [B, H, S];
+    -1e30 on rows with no allowed key."""
+    import torch
+    from cloud_tpu_torch.ops import attention as tatt
+
+    k = tatt.repeat_kv(k, q.shape[2])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits / np.sqrt(q.shape[-1])
+    if logit_softcap:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    seq = q.shape[1]
+    allowed = torch.ones((seq, seq), dtype=torch.bool, device=q.device)
+    if causal:
+        row = torch.arange(seq, device=q.device)[:, None]
+        col = torch.arange(seq, device=q.device)[None, :]
+        allowed = col <= row
+        if window:
+            allowed = allowed & (col > row - window)
+    allowed = allowed[None, None].expand(q.shape[0], 1, seq, seq)
+    if mask is not None:
+        allowed = allowed & mask[:, None, None, :]
+    logits = torch.where(allowed, logits, torch.full((), -float("inf"),
+                                                     device=q.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    return torch.where(allowed.any(-1), lse,
+                       torch.full((), -1e30, device=q.device))
+
+
+def compare(got, want, rtol, atol):
+    """Element-wise comparison of a kernel's tensor with the plain
+    version's (f32), rows along the last axis: the worst ratio of
+    |got - want| to rtol |want| + atol rms(row of want) (the gate: at
+    most 1; rms(row) floored at ROW_FLOOR x the tensor's rms), the worst
+    |got - want| over its (floored) row rms, the worst over max |want|,
+    the largest |got - want|, and where the worst ratio lies."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rms = torch.clamp(want.square().mean(-1, keepdim=True).sqrt(),
+                      min=ROW_FLOOR * want.square().mean().sqrt().item())
+    zero = torch.zeros((), device=err.device)
+    ratio = torch.where(err == 0, zero, err / (rtol * want.abs() + atol * rms))
+    row = torch.where(err == 0, zero, err / rms)
+    worst = int(ratio.argmax())
+    return {"tol_ratio": ratio.max().item(),
+            "row_normalized": row.max().item(),
+            "max_normalized": err.max().item() / max(
+                want.abs().max().item(), 1e-30),
+            "max_abs_err": err.max().item(),
+            "worst_at": list(np.unravel_index(worst, tuple(err.shape)))}
+
+
+def check_flash_kernels(device):
+    """Every FLASH_CASES case through the public `flash_attention` and
+    `torch.autograd.grad` (the training path's calls): out element by
+    element (`compare`) against `mha_reference` in f32 on the same
+    inputs, with the lse the forward kernel saved for the backward; dq,
+    dk, dv element by element against `mha_backward_reference` on the
+    backward's inputs, and end to end against mha_reference's autograd.
+    Returns (per-kernel max abs error over the main-path case gpt2_bf16,
+    details of every case)."""
+    import torch
+    from cloud_tpu_torch.ops import attention as tatt
+
+    rng = np.random.default_rng(10)
+    details = {}
+    main_err = {}
+    for name, dtype, shape, kw, mask_kind, q_scale in FLASH_CASES:
+        q, k, v, dout, mask = flash_inputs(rng, dtype, shape, mask_kind,
+                                           device, q_scale)
+        leaves = [x.requires_grad_(True) for x in (q, k, v)]
+        out = tatt.flash_attention(*leaves, mask=mask, **kw)
+        lse = out.grad_fn.saved_tensors[-1]   # [B, H, S], f32
+        dq, dk, dv = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        f32 = [x.detach().float() for x in (q, k, v, dout)]
+        # delta as the backward computes it, from the forward's output.
+        delta = (f32[3] * out.detach().float()).sum(-1).transpose(1, 2)
+        plain = (tatt.mha_reference(*f32[:3], mask=mask, **kw),) + \
+            tatt.mha_backward_reference(*f32, delta, mask=mask, **kw)
+        rlse = reference_lse(f32[0], f32[1], mask, **kw)
+        ref_leaves = [x.requires_grad_(True) for x in f32[:3]]
+        whole = torch.autograd.grad(
+            tatt.mha_reference(*ref_leaves, mask=mask, **kw), ref_leaves,
+            f32[3])
+        tol = FLASH_TOL[dtype]
+        row = {"shape": shape, "dtype": dtype, "kwargs": kw,
+               "mask": mask_kind, "q_scale": q_scale}
+        for key, got, want in zip(("out", "dq", "dk", "dv"),
+                                  (out, dq, dk, dv), plain):
+            if got.dtype != q.dtype or got.shape != want.shape:
+                raise AssertionError("flash {} {}: {} {}, want {} {}".format(
+                    name, key, got.dtype, tuple(got.shape), q.dtype,
+                    tuple(want.shape)))
+            row[key] = compare(got, want, tol["rtol"], tol["atol"])
+            if not torch.isfinite(got).all() or \
+                    not row[key]["tol_ratio"] <= 1.0:
+                raise AssertionError(
+                    "flash {} {}: error {:.3e} of the bound (rtol {} + atol "
+                    "{} x row rms) at {}".format(
+                        name, key, row[key]["tol_ratio"], tol["rtol"],
+                        tol["atol"], row[key]["worst_at"]))
+        for key, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), whole):
+            err = compare(got, want, 0.0, 1.0)["max_normalized"]
+            row[key]["end_to_end_max_normalized"] = err
+            if not err <= END_TO_END_TOL[dtype]:
+                raise AssertionError(
+                    "flash {} {}: end to end {:.3e} of max |x| > {}".format(
+                        name, key, err, END_TO_END_TOL[dtype]))
+        live = rlse > -1e29
+        lse_err = (lse - rlse)[live].abs().max().item()
+        row["lse"] = {"max_abs_err": lse_err}
+        if not lse_err <= tol["lse"] or not (lse[~live] <= -1e29).all():
+            raise AssertionError("flash {} lse: err {} > {} or a dead row "
+                                 "lse above -1e29".format(name, lse_err,
+                                                          tol["lse"]))
+        if mask_kind == "dead":
+            if not ((out[0] == 0).all() and (dq[0] == 0).all()
+                    and (dk[0] == 0).all() and (dv[0] == 0).all()
+                    and (out[1, :100] == 0).all()):
+                raise AssertionError("flash {}: rows with no allowed key "
+                                     "are not zeros".format(name))
+        details[name] = row
+        keys = ("out", "dq", "dk", "dv")
+        log("flash {} {}: of the bound (rtol {} + atol {} x row rms) out "
+            "{:.3f} dq {:.3f} dk {:.3f} dv {:.3f}; worst err over its row's "
+            "rms out {:.2e} dq {:.2e} dk {:.2e} dv {:.2e}; end to end over "
+            "max |x| dq {:.2e} dk {:.2e} dv {:.2e} (tol {}); lse {:.2e}"
+            .format(name, shape, tol["rtol"], tol["atol"],
+                    *[row[x]["tol_ratio"] for x in keys],
+                    *[row[x]["row_normalized"] for x in keys],
+                    *[row[x]["end_to_end_max_normalized"] for x in keys[1:]],
+                    END_TO_END_TOL[dtype], lse_err))
+        if name == "gpt2_bf16":
+            main_err = {"flash_attention_fwd": row["out"]["max_abs_err"],
+                        "flash_attention_dq": row["dq"]["max_abs_err"],
+                        "flash_attention_dkdv": max(
+                            row["dk"]["max_abs_err"],
+                            row["dv"]["max_abs_err"])}
+        del q, k, v, dout, out, lse, dq, dk, dv, plain, whole, delta
+        del leaves, ref_leaves, f32
+        torch.cuda.empty_cache()
+    return main_err, details
+
+
+def time_flash_kernels(device):
+    """Each kernel at the GPT-2 training shape (bf16, causal) by CUDA
+    graph replays, beside its bound, the plain version (the forward by
+    graph replays; the backward, which computes dq, dk and dv together,
+    by `backward_ms`) and scaled_dot_product_attention (the same)."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.ops import attention as tatt
+
+    batch, seq, heads, kv_heads, head_dim = 8, 1024, 12, 12, 64
+    rng = np.random.default_rng(11)
+    q, k, v, dout, _ = flash_inputs(rng, "bf16",
+                                    (batch, seq, heads, kv_heads, head_dim),
+                                    None, device)
+    config = (True, 1.0 / np.sqrt(head_dim), 0, 0.0)
+    out, lse = tatt._launch_forward(q, k, v, None, config)
+    delta = tatt._delta(dout, out)
+    rows = {
+        "flash_attention_fwd": {"ms": timed_ms(
+            lambda: tatt._launch_forward(q, k, v, None, config))},
+        "flash_attention_dq": {"ms": timed_ms(
+            lambda: tatt._launch_dq(q, k, v, None, dout, lse, delta,
+                                    config))},
+        "flash_attention_dkdv": {"ms": timed_ms(
+            lambda: tatt._launch_dkdv(q, k, v, None, dout, lse, delta,
+                                      config))},
+    }
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+
+    def plain_fwd():
+        with torch.no_grad():
+            return tatt.mha_reference(q, k, v, causal=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    plain_f = timed_ms(plain_fwd)
+    plain_b, plain_kernels = backward_ms(
+        tatt.mha_reference(*leaves, causal=True), leaves, dout)
+    lib_f = timed_ms(sdpa_fwd)
+    lib_b, lib_kernels = backward_ms(
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), leaves,
+        dout.transpose(1, 2))
+    cost = tatt.flash_attention_cost(batch, seq, heads, kv_heads, head_dim,
+                                     causal=True)
+    for name, part, plain, lib in (
+            ("flash_attention_fwd", "forward", plain_f, lib_f),
+            ("flash_attention_dq", "dq", plain_b, lib_b),
+            ("flash_attention_dkdv", "dkdv", plain_b, lib_b)):
+        row = rows[name]
+        row["bound_ms"], row["bound_by"] = bound_of(cost[part])
+        row["plain_ms"] = plain
+        row["library_ms"] = lib
+        row["flops"] = cost[part]["flops"]
+        row["bytes"] = cost[part]["bytes_moved"]
+        log("kernel {} (B 8, S 1024, H 12, D 64, bf16, causal): {:.4f} ms "
+            "(bound {:.4f} ms by {}; {:.1f} TFLOP/s), plain {:.4f} ms, "
+            "library {:.4f} ms".format(
+                name, row["ms"], row["bound_ms"], row["bound_by"],
+                row["flops"] / row["ms"] / 1e9, plain, lib))
+    log("plain backward (dq+dk+dv) {:.4f} ms ({:g} kernels per call); sdpa "
+        "backward {:.4f} ms ({:g} kernels per call); device time of the "
+        "backward alone under the profiler".format(plain_b, plain_kernels,
+                                                   lib_b, lib_kernels))
+    del q, k, v, dout, out, lse, delta, leaves
+    torch.cuda.empty_cache()
+    return rows
+
+
+# -- phase 6: training -------------------------------------------------
+
+def training_data(seed, n, vocab, seq, alphabet=64):
+    """n sequences of seq + 1 tokens over an alphabet of `alphabet` token
+    ids (drawn from the vocabulary): two interleaved chains, each token
+    the image under one fixed random permutation of the token two places
+    before it, from two random starts. The next token is independent of
+    the current one (the other chain) and fixed by the one before it.
+    Returns (x, y) int64 arrays [n, seq] (y is x shifted by one)."""
+    rng = np.random.default_rng(seed)
+    letters = rng.permutation(vocab)[:alphabet]
+    perm = rng.permutation(alphabet)
+    idx = np.empty((n, seq + 1), dtype=np.int64)
+    idx[:, :2] = rng.integers(0, alphabet, size=(n, 2))
+    for t in range(2, seq + 1):
+        idx[:, t] = perm[idx[:, t - 2]]
+    tokens = letters[idx]
+    return tokens[:, :-1].copy(), tokens[:, 1:].copy()
+
+
+def next_token_entropy(x, y):
+    """Entropy in nats of y given x alone (the current token), over
+    every position of the data: the least mean loss of any model that
+    sees only the current token and its position (every position of the
+    chains is alike)."""
+    pairs = x.astype(np.int64).ravel() * (int(x.max()) + 1) + y.ravel()
+    _, joint = np.unique(pairs, return_counts=True)
+    _, marginal = np.unique(x, return_counts=True)
+    total = float(x.size)
+    # H(Y | X) = H(X, Y) - H(X).
+    return float(-(joint / total * np.log(joint / total)).sum()
+                 + (marginal / total * np.log(marginal / total)).sum())
+
+
+def matmul_params(model):
+    """Parameters that take part in matrix products (every Linear
+    weight, the output head included; not the embedding tables)."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if n.endswith("weight") and p.ndim == 2
+               and not n.startswith(("embed", "pos_embed")))
+
+
+def one_step_check(model, x, y):
+    """Loss and each parameter's gradient norm of one training step from
+    the model's current weights, with attention by the kernels and by
+    the plain version (the model's attention call swapped for
+    mha_reference for the second run only)."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.models import transformer as ttf
+    from cloud_tpu_torch.ops import attention as tatt
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        logits = model(x)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               y.reshape(-1))
+        loss.backward()
+        norms = {n: p.grad.float().norm().item()
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), norms
+
+    tatt.reset_launches()
+    loss_k, norms_k = step()
+    launched = dict(tatt.launches)
+    kernel_attention = ttf.attention_ops.attention
+
+    def plain(q, k, v, causal=True, mask=None, **kw):
+        return tatt.mha_reference(q, k, v, causal=causal, mask=mask, **kw)
+
+    ttf.attention_ops.attention = plain
+    try:
+        loss_p, norms_p = step()
+    finally:
+        ttf.attention_ops.attention = kernel_attention
+    if launched["flash_attention_fwd"] != model.num_layers:
+        raise AssertionError("one-step check did not run the kernels: "
+                             "{}".format(launched))
+    # The attention key bias gets a zero gradient in exact arithmetic (it
+    # shifts every logit of a row alike); its norm is rounding noise in
+    # both runs and is not compared.
+    worst, worst_name = 0.0, None
+    for name, want in norms_p.items():
+        if name.endswith("attention.key.bias"):
+            continue
+        rel = abs(norms_k[name] - want) / max(want, 1e-12)
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log("train one-step check: loss kernels {:.6f} plain {:.6f} (rel "
+        "{:.2e}, tol {}); worst grad-norm rel diff {:.2e} at {} (tol "
+        "{})".format(loss_k, loss_p, loss_rel, STEP_LOSS_TOL, worst,
+                     worst_name, STEP_GRAD_TOL))
+    if not (np.isfinite(loss_k) and loss_rel <= STEP_LOSS_TOL
+            and worst <= STEP_GRAD_TOL):
+        raise AssertionError("one training step disagrees with the plain "
+                             "attention")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": loss_rel, "worst_grad_norm_rel_diff": worst,
+            "worst_grad_norm_param": worst_name}
+
+
+def train(device):
+    """Phase 6; returns (flash launches in fit, summary dict)."""
+    import torch
+    from cloud_tpu_torch.models import TransformerLM
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.ops import paged_attention as _  # noqa: F401
+    from cloud_tpu_torch.training import Trainer, make_optimizer
+    from cloud_tpu_torch.training.schedules import warmup_cosine
+
+    pa = sys.modules["cloud_tpu_torch.ops.paged_attention"]
+    model = TransformerLM(compute_dtype=torch.bfloat16, device=device,
+                          seed=0, **GPT2_SMALL)
+    n_train = TRAIN_BATCH * TRAIN_STEPS
+    x, y = training_data(5, n_train + 2 * TRAIN_BATCH, model.vocab_size,
+                         TRAIN_SEQ)
+    x_val, y_val = x[n_train:], y[n_train:]
+    x, y = x[:n_train], y[:n_train]
+    entropy = next_token_entropy(x, y)
+    check = one_step_check(model,
+                           torch.as_tensor(x[:TRAIN_BATCH], device=device),
+                           torch.as_tensor(y[:TRAIN_BATCH], device=device))
+
+    total = TRAIN_EPOCHS * TRAIN_STEPS
+    trainer = Trainer(model, optimizer=make_optimizer(
+        "adamw", warmup_cosine(TRAIN_LR, total, total // 10)),
+        metrics=("accuracy",), seed=0)
+    tatt.reset_launches()
+    pa.reset_launches()
+    t0 = time.monotonic()
+    history = trainer.fit(x, y, batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                          verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = dict(tatt.launches)
+    steps = trainer.state.step
+    want = model.num_layers * steps
+    if steps != TRAIN_EPOCHS * TRAIN_STEPS or any(
+            launches[k] != want for k in launches) or any(pa.launches.values()):
+        raise AssertionError(
+            "fit launched {} (paged {}) over {} steps; expected {} (= "
+            "layers x steps) of each flash kernel".format(
+                launches, dict(pa.launches), steps, want))
+    losses = history["loss"]
+    log("train fit: {} steps in {:.2f} s, history {}; entropy of the next "
+        "token given the current one {:.4f} nats, gate {} x that".format(
+            steps, fit_s, json.dumps(history), entropy, LOSS_FALL))
+    if not (all(np.isfinite(losses))
+            and losses[-1] < LOSS_FALL * entropy < losses[0]):
+        raise AssertionError(
+            "the last epoch's loss {} is not below {} x {:.4f} (the "
+            "entropy of the next token given the current one)".format(
+                losses[-1], LOSS_FALL, entropy))
+
+    # Step time: 10 more steps through the Trainer's step body, each
+    # closed by a synchronize; then 3 under torch.profiler.
+    batches = [(x[i:i + TRAIN_BATCH], y[i:i + TRAIN_BATCH])
+               for i in range(0, n_train, TRAIN_BATCH)]
+    times = []
+    for i in range(10):
+        t1 = time.monotonic()
+        trainer._train_step(batches[i % len(batches)], False)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t1)
+    step_s = float(np.median(times))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.monotonic()
+        for i in range(3):
+            trainer._train_step(batches[i], False)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.monotonic() - t1) * 1e6
+    # Busy share: the union of the device events' intervals over the
+    # host wall time (events may overlap, so their sum may exceed it).
+    spans, by_name = [], {}
+    for evt in prof.events():
+        # User annotations on the device timeline (Optimizer.step spans)
+        # cover kernels that are counted on their own.
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        spans.append((evt.time_range.start, evt.time_range.end))
+        by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                             + evt.time_range.elapsed_us())
+    device_us = 0.0
+    end = None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            device_us += hi - lo
+            end = hi
+        elif hi > end:
+            device_us += hi - end
+            end = hi
+    flash_us = sum(v for k, v in by_name.items() if "flash_" in k)
+    total_us = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    top_kernels = [{"name": k[:120], "ms_per_step": v / 3e3,
+                    "share": v / total_us if total_us else None}
+                   for k, v in top]
+    cost = tatt.flash_attention_cost(TRAIN_BATCH, TRAIN_SEQ,
+                                     model.num_heads, model.num_heads,
+                                     model.head_dim, causal=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = matmul_params(model)
+    # Forward + backward of attention without recomputation: 3 x the
+    # forward's two products, per layer.
+    step_flops = (6.0 * n_params * tokens
+                  + 3 * cost["forward"]["flops"] * model.num_layers)
+    mfu = step_flops / step_s / PEAK_FLOPS["bf16"]
+    busy = (device_us / prof_wall_us) if device_us > 0 else None
+
+    val = trainer.evaluate(x_val, y_val, batch_size=TRAIN_BATCH,
+                           verbose=False)
+    pred = trainer.predict(x_val[:2], batch_size=2)
+    if pred.shape != (2, TRAIN_SEQ, model.vocab_size) or \
+            not np.isfinite(pred).all():
+        raise AssertionError("predict gave {} {}".format(pred.shape,
+                                                         pred.dtype))
+    logp = pred - pred.max(-1, keepdims=True)
+    logp = logp - np.log(np.exp(logp).sum(-1, keepdims=True))
+    pred_loss = float(-np.take_along_axis(logp, y_val[:2, :, None],
+                                          -1).mean())
+    val2 = trainer.evaluate(x_val[:2], y_val[:2], batch_size=2,
+                            verbose=False)
+    if not (np.isfinite(val["loss"]) and abs(pred_loss - val2["loss"])
+            <= 1e-3 * max(1.0, val2["loss"])):
+        raise AssertionError("predict's loss {} disagrees with evaluate's "
+                             "{}".format(pred_loss, val2["loss"]))
+    summary = {
+        "model": "GPT-2 small bf16", "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": steps, "history": history,
+        "peak_lr": TRAIN_LR, "next_token_entropy_given_current": entropy,
+        "fit_s": fit_s, "launches": launches, "one_step_check": check,
+        "step_p50_s": step_s, "step_times_s": times,
+        "tokens_per_s": tokens / step_s, "matmul_params": n_params,
+        "step_flops": step_flops, "mfu": mfu,
+        "device_busy_share": busy,
+        "flash_share_of_device": (flash_us / total_us if total_us
+                                  else None),
+        "device_ms_per_step": total_us / 3e3,
+        "top_kernels": top_kernels,
+        "evaluate": val, "predict_loss_2_seqs": pred_loss,
+        "evaluate_loss_2_seqs": val2["loss"],
+    }
+    log("train: step p50 {:.2f} ms, {:.0f} tokens/s, MFU {:.4f}, device "
+        "busy {}, flash kernels {} of device time; evaluate {}".format(
+            step_s * 1e3, tokens / step_s, mfu, busy,
+            summary["flash_share_of_device"], json.dumps(val)))
+    for row in top_kernels:
+        log("train top kernel {:.3f} ms/step ({:.1%}): {}".format(
+            row["ms_per_step"], row["share"] or 0.0, row["name"]))
+    return launches, summary
+
+
 def main():
     import torch
 
@@ -438,6 +1053,8 @@ def main():
     log("nvidia-smi: {}".format(smi))
 
     rows = check_kernels(device)
+    flash_err, flash_details = check_flash_kernels(device)
+    flash_rows = time_flash_kernels(device)
 
     model = TransformerLM(compute_dtype=torch.bfloat16, device=device,
                           seed=0, **GPT2_SMALL)
@@ -447,6 +1064,9 @@ def main():
     launches_fp, serve_fp = serve(model, ref_model, 16, 4, "", seed=1)
     launches_q, serve_q = serve(model, ref_model, 8, 2, "int8", seed=2)
     breakdown = tick_breakdown(model)
+    del model, ref_model
+    torch.cuda.empty_cache()
+    flash_launches, training = train(device)
 
     source = "cloud_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
@@ -462,6 +1082,18 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for name, replaces in (
+            ("flash_attention_fwd", "cloud_tpu/ops/attention.py:179"),
+            ("flash_attention_dq", "cloud_tpu/ops/attention.py:345"),
+            ("flash_attention_dkdv", "cloud_tpu/ops/attention.py:383")):
+        row = flash_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "cloud_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": flash_launches[name],
+            "max_abs_err": flash_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     device_info = {"platform": "gpu",
                    "kind": torch.cuda.get_device_name(0),
                    "count": torch.cuda.device_count()}
@@ -469,8 +1101,11 @@ def main():
     with open(os.path.join(root, "build", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "device": device_info,
                    "kernels": kernels, "serve": [serve_fp, serve_q],
-                   "tick_breakdown": breakdown}, f,
-                  indent=1)
+                   "tick_breakdown": breakdown,
+                   "flash_checks": flash_details,
+                   "flash_timing": flash_rows, "training": training,
+                   "build_logs": _build.build_logs}, f,
+                  indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device_info}), flush=True)

@@ -7,16 +7,19 @@ standard library only; its kernels are CUDA C++ sources under
 CUDA card unless the caller passes `device="cpu"`, where each kernel's
 plain PyTorch version runs instead.
 
-Ported so far: paged decode attention (fp and int8 pages), decode-mode
-`TransformerLM`, `generate()`, and the plain serving path
-(`Scheduler` -> `DecodeEngine`).
+Ported so far: paged decode attention (fp and int8 pages) and flash
+attention (forward and backward), `TransformerLM` (training forward and
+decode), `generate()`, the plain serving path (`Scheduler` ->
+`DecodeEngine`) and `Trainer` (fit / evaluate / predict over arrays).
 """
 
-from cloud_tpu_torch import models, ops, serving
-from cloud_tpu_torch.models import TransformerLM, generate, params_from_flax
+from cloud_tpu_torch import models, ops, serving, training
+from cloud_tpu_torch.models import (TransformerLM, generate, params_from_flax,
+                                    params_to_flax)
 from cloud_tpu_torch.serving import (DecodeEngine, Scheduler, ServeRequest,
                                      ServeResult)
+from cloud_tpu_torch.training import Trainer
 
 __all__ = ["DecodeEngine", "Scheduler", "ServeRequest", "ServeResult",
-           "TransformerLM", "generate", "models", "ops", "params_from_flax",
-           "serving"]
+           "Trainer", "TransformerLM", "generate", "models", "ops",
+           "params_from_flax", "params_to_flax", "serving", "training"]

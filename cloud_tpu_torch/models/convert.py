@@ -1,5 +1,6 @@
 """Carries `cloud_tpu` `TransformerLM` parameters into the port's
-`TransformerLM` state dict.
+`TransformerLM` state dict (`params_from_flax`) and back
+(`params_to_flax`, the exact inverse).
 
     embed/embedding [V, d]              -> embed.weight
     pos_embed/embedding [L, d]          -> pos_embed.weight
@@ -62,4 +63,55 @@ def params_from_flax(params):
             for k, v in state.items()}
 
 
-__all__ = ["params_from_flax"]
+def params_to_flax(state_dict, num_heads):
+    """The inverse of `params_from_flax`: a port `TransformerLM` state
+    dict (tensors on any device) -> the JAX model's nested "params" dict
+    of float32 numpy arrays. `num_heads` restores the [d, H, hd] /
+    [H, hd, d] attention kernels. Raises on any key it does not map."""
+    params = {}
+
+    def put(path, value):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for name, tensor in state_dict.items():
+        arr = tensor.detach().to("cpu", torch.float32).numpy().copy()
+        parts = name.split(".")
+        if parts[0] in ("embed", "pos_embed") and parts[1:] == ["weight"]:
+            put((parts[0], "embedding"), arr)
+            continue
+        if parts[0] == "blocks":
+            path = ("block_" + parts[1],) + tuple(parts[2:-1])
+        else:
+            path = tuple(parts[:-1])
+        leaf = parts[-1]
+        module = path[-1]
+        if module.startswith("ln_"):
+            put(path + ({"weight": "scale", "bias": "bias"}[leaf],), arr)
+        elif module in ("query", "key", "value"):
+            if leaf == "weight":
+                put(path + ("kernel",),
+                    arr.T.reshape(arr.shape[1], num_heads, -1))
+            else:
+                put(path + ("bias",), arr.reshape(num_heads, -1))
+        elif module == "out" and leaf == "weight":
+            put(path + ("kernel",), arr.T.reshape(num_heads, -1,
+                                                  arr.shape[0]))
+        elif module in ("out", "mlp_in", "mlp_out") and leaf == "bias":
+            put(path + ("bias",), arr)
+        elif module in ("mlp_in", "mlp_out", "lm_head") and leaf == "weight":
+            put(path + ("kernel",), arr.T)
+        else:
+            raise ValueError("unmapped parameter {}".format(name))
+    return {k: _contiguous(v) for k, v in params.items()}
+
+
+def _contiguous(tree):
+    if isinstance(tree, dict):
+        return {k: _contiguous(v) for k, v in tree.items()}
+    return np.ascontiguousarray(tree)
+
+
+__all__ = ["params_from_flax", "params_to_flax"]

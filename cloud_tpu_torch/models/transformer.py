@@ -1,13 +1,21 @@
-"""Decoder-only Transformer LM (GPT-2 shaped), decode mode; the port of
+"""Decoder-only Transformer LM (GPT-2 shaped); the port of
 `cloud_tpu/models/transformer.py`.
 
 Parameters are float32; matrix work runs in `compute_dtype` (bf16 by
 default) with f32 attention logits and softmax, as the JAX model does,
 except that the residual stream, the final norm and the output head
-stay in f32 (the JAX model rounds them to the compute dtype).
+stay in f32 (the JAX model rounds them to the compute dtype). Training
+and decode share the block code, so this holds for both.
 
-A forward call takes a cache dict (`init_cache`) and updates it in
-place:
+Without a cache, a forward call is the training/scoring forward: causal
+attention over the whole sequence through `ops.attention` (the flash
+kernels on the card, forward and backward), positions 0..S-1, and
+dropout when `deterministic=False` (drawn from the caller's
+`torch.Generator`). Gradients reach the f32 parameters through their
+compute-dtype copies.
+
+With a cache dict (`init_cache`), a forward call decodes and updates the
+cache in place (no gradients):
 
 - a dense cache (`init_cache(batch)`) is the per-example KV cache of
   `generate()`'s prefill and of the serving engine's prefill;
@@ -16,9 +24,9 @@ place:
   page tables, attended by `ops.paged_attention` (the CUDA kernel on
   the card), with optional int8 pages (`page_dtype="int8"`).
 
-The non-decode forward (training and scoring) runs the flash-attention
-kernel, which this port does not have yet: calling the model without a
-cache raises NotImplementedError.
+Not ported (ROADMAP "Modules to port"): the mixture-of-experts MLP
+(`moe_experts > 0`) and bidirectional blocks (`causal=False`, the
+`TransformerEncoder`); both raise NotImplementedError.
 """
 
 import math
@@ -29,12 +37,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from cloud_tpu_torch.models import decoding
+from cloud_tpu_torch.ops import attention as attention_ops
 from cloud_tpu_torch.parallel import runtime
 
 
 class _ComputeWeights:
-    """Parameters cast to the compute dtype, cast once and reused until
-    the parameter changes (in-place update or new storage)."""
+    """Parameters cast to the compute dtype. With grad enabled the cast
+    is an autograd op, so the copy's gradient reaches the f32 parameter.
+    Without grad (decode, evaluation) each copy is cast once and reused
+    until the parameter changes (in-place update or new storage)."""
 
     def __init__(self, dtype):
         self.dtype = dtype
@@ -43,6 +54,8 @@ class _ComputeWeights:
     def __call__(self, p):
         if p is None or p.dtype == self.dtype:
             return p
+        if torch.is_grad_enabled():
+            return p.to(self.dtype)
         key = id(p)
         stamp = (p._version, p.data_ptr())
         hit = self._memo.get(key)
@@ -61,6 +74,15 @@ def _layer_norm(cast, norm, x):
     y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
                      norm.bias, norm.eps)
     return y.to(cast.dtype)
+
+
+def _dropout(x, rate, generator):
+    """Inverted dropout (keep with probability 1 - rate, scale the kept
+    values by 1 / (1 - rate)), drawn from `generator`."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
 
 
 class CausalSelfAttention(nn.Module):
@@ -85,10 +107,10 @@ class CausalSelfAttention(nn.Module):
         k = _linear(self._cast, self.key, x).view(shape)
         v = _linear(self._cast, self.value, x).view(shape)
         if cache is None:
-            raise NotImplementedError(
-                "the non-decode forward runs the flash-attention kernel, "
-                "which is not ported yet; pass a decode cache.")
-        if "key_pages" in cache:
+            # Training / scoring: causal attention over the sequence, the
+            # key mask (optional [B, S]) excluding padded keys.
+            out = attention_ops.attention(q, k, v, causal=True, mask=mask)
+        elif "key_pages" in cache:
             out = self._paged_decode_attention(q, k, v, mask, cache)
         else:
             out = self._decode_attention(q, k, v, mask, cache)
@@ -191,13 +213,19 @@ def _quantized_page_write(pages, scales, x, phys, off):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + attn(ln(x)), then x + mlp(ln(x)) with
-    tanh-approximate GELU."""
+    """Pre-LN block: x + drop(attn(ln(x))), then x + drop(mlp(ln(x)))
+    with tanh-approximate GELU; dropout only when `dropout_rate` > 0 and
+    the forward is not deterministic."""
 
     def __init__(self, d_model, num_heads, d_ff, norm_eps, cast,
-                 device=None):
+                 dropout_rate=0.0, causal=True, device=None):
         super().__init__()
+        if not causal:
+            raise NotImplementedError(
+                "bidirectional blocks (TransformerEncoder) are not ported "
+                "yet (ROADMAP: Modules to port, item 7).")
         self._cast = cast
+        self.dropout_rate = float(dropout_rate)
         self.ln_attn = nn.LayerNorm(d_model, eps=norm_eps, device=device)
         self.attention = CausalSelfAttention(d_model, num_heads, cast,
                                              device=device)
@@ -205,28 +233,41 @@ class TransformerBlock(nn.Module):
         self.mlp_in = nn.Linear(d_model, d_ff, device=device)
         self.mlp_out = nn.Linear(d_ff, d_model, device=device)
 
-    def forward(self, x, mask, cache):
+    def forward(self, x, mask, cache, generator=None):
+        """generator: a `torch.Generator` on x's device when dropout is
+        on for this call (None = deterministic)."""
         cast = self._cast
-        x = x + self.attention(_layer_norm(cast, self.ln_attn, x), mask,
-                               cache)
+        drop = self.dropout_rate > 0 and generator is not None
+        y = self.attention(_layer_norm(cast, self.ln_attn, x), mask, cache)
+        if drop:
+            y = _dropout(y, self.dropout_rate, generator)
+        x = x + y
         y = _linear(cast, self.mlp_in, _layer_norm(cast, self.ln_mlp, x))
-        y = F.gelu(y, approximate="tanh")
-        return x + _linear(cast, self.mlp_out, y)
+        y = _linear(cast, self.mlp_out, F.gelu(y, approximate="tanh"))
+        if drop:
+            y = _dropout(y, self.dropout_rate, generator)
+        return x + y
 
 
 class TransformerLM(nn.Module):
-    """GPT-style decoder-only language model (decode mode).
+    """GPT-style decoder-only language model.
 
     Weights are drawn from `seed` (normal, std 0.02; biases 0, norm
     scales 1) on `device` (default: the CUDA card; raises without one);
     load real ones with `load_state_dict` (see `params_from_flax`).
+    `dropout_rate` applies after attention and after the MLP when the
+    forward is called with `deterministic=False`.
     """
 
     def __init__(self, vocab_size=32000, num_layers=4, num_heads=8,
-                 d_model=512, d_ff=2048, max_seq_len=2048,
-                 compute_dtype=torch.bfloat16, norm_eps=1e-6, device=None,
-                 seed=0):
+                 d_model=512, d_ff=2048, max_seq_len=2048, dropout_rate=0.0,
+                 compute_dtype=torch.bfloat16, moe_experts=0, norm_eps=1e-6,
+                 device=None, seed=0):
         super().__init__()
+        if moe_experts:
+            raise NotImplementedError(
+                "the mixture-of-experts MLP (moe_experts > 0) is not "
+                "ported yet (ROADMAP: Modules to port, item 7).")
         device = runtime.resolve_device(device)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -234,6 +275,7 @@ class TransformerLM(nn.Module):
         self.d_model = d_model
         self.d_ff = d_ff
         self.max_seq_len = max_seq_len
+        self.dropout_rate = float(dropout_rate)
         self.compute_dtype = compute_dtype
         self.norm_eps = norm_eps
         self._cast = _ComputeWeights(compute_dtype)
@@ -241,7 +283,8 @@ class TransformerLM(nn.Module):
         self.pos_embed = nn.Embedding(max_seq_len, d_model, device=device)
         self.blocks = nn.ModuleList(
             TransformerBlock(d_model, num_heads, d_ff, norm_eps,
-                             self._cast, device=device)
+                             self._cast, dropout_rate=dropout_rate,
+                             device=device)
             for _ in range(num_layers))
         self.ln_final = nn.LayerNorm(d_model, eps=norm_eps, device=device)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False,
@@ -328,21 +371,36 @@ class TransformerLM(nn.Module):
                                          device=dev),
                 "layers": layers}
 
-    @torch.no_grad()
-    def forward(self, tokens, mask=None, cache=None):
-        """tokens [B, S] -> f32 logits [B, S, V], appending to `cache`.
-        mask (optional [B, S] bool) marks REAL incoming tokens:
-        positions count only real tokens, so a padded prompt looks up
-        the position rows of its unpadded equivalent."""
-        if cache is None:
-            raise NotImplementedError(
-                "the non-decode forward runs the flash-attention kernel, "
-                "which is not ported yet; pass a decode cache.")
+    def forward(self, tokens, mask=None, cache=None, deterministic=True,
+                generator=None):
+        """tokens [B, S] -> f32 logits [B, S, V].
+
+        Without `cache`: the training/scoring forward at positions
+        0..S-1; mask (optional [B, S] bool) marks the keys attention may
+        see; `deterministic=False` with `generator` (a `torch.Generator`
+        on the model's device) applies dropout.
+
+        With `cache`: decode, appending to the cache, without gradients.
+        mask marks REAL incoming tokens: positions count only real
+        tokens, so a padded prompt looks up the position rows of its
+        unpadded equivalent.
+        """
         batch, seq = tokens.shape
         if seq > self.max_seq_len:
             raise ValueError(
                 "Sequence length {} exceeds max_seq_len {}.".format(
                     seq, self.max_seq_len))
+        if cache is not None:
+            with torch.no_grad():
+                return self._decode(tokens, mask, cache)
+        gen = None if deterministic else generator
+        x = self.embed.weight[tokens] + self.pos_embed.weight[:seq]
+        for block in self.blocks:
+            x = block(x, mask, None, generator=gen)
+        return self._head(x)
+
+    def _decode(self, tokens, mask, cache):
+        batch, seq = tokens.shape
         # The residual stream stays in f32 (the JAX model keeps it in the
         # compute dtype): rounding it at each of 2 x layers additions is
         # the largest error a bf16 decode adds to the logits.
@@ -354,6 +412,9 @@ class TransformerLM(nn.Module):
         x = x + self.pos_embed.weight[positions]
         for block, layer_cache in zip(self.blocks, cache["layers"]):
             x = block(x, mask, layer_cache)
+        return self._head(x)
+
+    def _head(self, x):
         # The final norm and the output head run in f32: the logits
         # feed an argmax or a draw over the whole vocabulary, and bf16
         # logits (steps of 1/128 near |2|) tie often over 50257 tokens.

@@ -1,12 +1,20 @@
 """Kernels of the PyTorch port, each beside its plain PyTorch version.
 
 `paged_attention` launches the hand-written CUDA kernel on CUDA tensors
-and runs `paged_attention_reference` on CPU tensors.
+and runs `paged_attention_reference` on CPU tensors; `flash_attention`
+(and the dispatcher `ops.attention.attention`) launch the flash kernels
+(forward, dq, dk/dv) on CUDA tensors and run `mha_reference` on CPU
+tensors. `ops.attention` stays the module: its dispatcher is not
+re-exported here under the module's own name.
 """
 
+from cloud_tpu_torch.ops.attention import flash_attention
+from cloud_tpu_torch.ops.attention import flash_attention_cost
+from cloud_tpu_torch.ops.attention import mha_reference
 from cloud_tpu_torch.ops.paged_attention import paged_attention
 from cloud_tpu_torch.ops.paged_attention import paged_attention_cost
 from cloud_tpu_torch.ops.paged_attention import paged_attention_reference
 
-__all__ = ["paged_attention", "paged_attention_cost",
+__all__ = ["attention", "flash_attention", "flash_attention_cost",
+           "mha_reference", "paged_attention", "paged_attention_cost",
            "paged_attention_reference"]

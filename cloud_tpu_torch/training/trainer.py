@@ -1,0 +1,697 @@
+"""Trainer: a `model.fit`-style training loop; the port of
+`cloud_tpu/training/trainer.py` on one device.
+
+The Trainer runs where the model's parameters live (the port's models
+default to the CUDA card; build one with `device="cpu"` to train on the
+CPU). Each step is the JAX step's body in eager PyTorch: forward, the
+loss mean (weighted Keras semantics under `sample_weight`), backward,
+one optimizer update (every k-th step under gradient accumulation, as
+`optax.MultiSteps`), and the step's metrics, which stay on the device.
+Each epoch's metrics are reduced on the device and fetched once through
+`runtime.device_fetch`.
+
+Example:
+    model = TransformerLM(..., device="cuda")
+    trainer = Trainer(model, optimizer="adamw", metrics=("accuracy",))
+    history = trainer.fit(x_train, y_train, epochs=2, batch_size=8)
+
+Not ported yet (they raise NotImplementedError; ROADMAP "Modules to
+port"): meshes and sharding rules, ZeRO/FSDP, remat, EMA,
+steps_per_execution > 1, trainable masks, callbacks, resume and
+checkpoints, device-resident data and input casts, and the optimizers
+other than adam, adamw and sgd.
+"""
+
+import inspect
+import logging
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cloud_tpu_torch.parallel import runtime
+from cloud_tpu_torch.training import data as data_lib
+
+logger = logging.getLogger("cloud_tpu_torch")
+
+_NOT_PORTED = ("is not ported yet (ROADMAP: Modules to port, items 2 "
+               "and 4)")
+
+
+# -- Losses (outputs-in, per-example-loss-out) ---------------------------
+
+def _sparse_categorical_crossentropy(logits, labels):
+    classes = logits.shape[-1]
+    return F.cross_entropy(logits.reshape(-1, classes).float(),
+                           labels.reshape(-1).long(),
+                           reduction="none").reshape(labels.shape)
+
+
+def _categorical_crossentropy(logits, labels):
+    return -(labels * torch.log_softmax(logits.float(), dim=-1)).sum(-1)
+
+
+def _binary_crossentropy(logits, labels):
+    return F.binary_cross_entropy_with_logits(logits.float(), labels.float(),
+                                              reduction="none")
+
+
+def _mse(preds, targets):
+    return torch.square(preds - targets).mean(
+        dim=tuple(range(1, preds.ndim)))
+
+
+def sparse_categorical_crossentropy(label_smoothing=0.0):
+    """Loss factory: integer-label softmax CE with label smoothing
+    (the one-hot target mixed with the uniform distribution)."""
+    if not 0.0 <= label_smoothing < 1.0:
+        raise ValueError("label_smoothing must be in [0, 1); got "
+                         "{}.".format(label_smoothing))
+    if not label_smoothing:
+        return _sparse_categorical_crossentropy
+
+    def loss(logits, labels):
+        classes = logits.shape[-1]
+        return F.cross_entropy(logits.reshape(-1, classes).float(),
+                               labels.reshape(-1).long(), reduction="none",
+                               label_smoothing=label_smoothing).reshape(
+                                   labels.shape)
+
+    return loss
+
+
+LOSSES = {
+    "sparse_categorical_crossentropy": _sparse_categorical_crossentropy,
+    "categorical_crossentropy": _categorical_crossentropy,
+    "binary_crossentropy": _binary_crossentropy,
+    "mse": _mse,
+    "mean_squared_error": _mse,
+}
+
+
+# -- Metrics (per-example values) ----------------------------------------
+
+def _accuracy(outputs, labels):
+    preds = outputs.argmax(dim=-1)
+    if labels.ndim == preds.ndim + 1:  # one-hot
+        labels = labels.argmax(dim=-1)
+    return (preds == labels).float()
+
+
+def _top5_accuracy(outputs, labels):
+    k = min(5, outputs.shape[-1])
+    topk = outputs.topk(k, dim=-1).indices
+    return (topk == labels[..., None]).any(dim=-1).float()
+
+
+def _mae_metric(outputs, labels):
+    return (outputs - labels).abs().reshape(outputs.shape[0], -1).mean(1)
+
+
+def _mse_metric(outputs, labels):
+    return torch.square(outputs - labels).reshape(outputs.shape[0],
+                                                  -1).mean(1)
+
+
+METRICS = {
+    "accuracy": _accuracy,
+    "top5_accuracy": _top5_accuracy,
+    "mae": _mae_metric,
+    "mean_absolute_error": _mae_metric,
+    "mse": _mse_metric,
+    "mean_squared_error": _mse_metric,
+}
+
+
+# -- Optimizers, at optax's defaults -------------------------------------
+
+def _lr(learning_rate, default):
+    lr = default if learning_rate is None else learning_rate
+    return lr(0) if callable(lr) else float(lr)
+
+
+def _adam(params, learning_rate=None):
+    return torch.optim.Adam(params, lr=_lr(learning_rate, 1e-3),
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def _adamw(params, learning_rate=None):
+    # optax.adamw's weight decay is 1e-4 (torch's default is 1e-2).
+    return torch.optim.AdamW(params, lr=_lr(learning_rate, 1e-3),
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _sgd(params, learning_rate=None):
+    # optax.sgd(momentum=0.9): trace t = g + 0.9 t, no dampening, no
+    # Nesterov.
+    return torch.optim.SGD(params, lr=_lr(learning_rate, 1e-2),
+                           momentum=0.9, dampening=0.0, nesterov=False)
+
+
+def _not_ported(name, reason):
+    def make(params, learning_rate=None):
+        raise NotImplementedError(
+            "optimizer {!r} {} ({}).".format(name, _NOT_PORTED, reason))
+    return make
+
+
+OPTIMIZERS = {
+    "adam": _adam,
+    "adamw": _adamw,
+    "sgd": _sgd,
+    "rmsprop": _not_ported("rmsprop", "optax puts eps inside the sqrt "
+                           "and decays 0.9; torch.optim.RMSprop does not"),
+    "adagrad": _not_ported("adagrad", "optax starts the accumulator at "
+                           "0.1; torch.optim.Adagrad at 0"),
+    "adafactor": _not_ported("adafactor", "no torch.optim counterpart"),
+    "lamb": _not_ported("lamb", "no torch.optim counterpart"),
+    "lion": _not_ported("lion", "no torch.optim counterpart"),
+}
+
+
+def make_optimizer(name, learning_rate=None):
+    """An optimizer spec for `Trainer(optimizer=...)`: `name` in
+    OPTIMIZERS with a float learning rate or a schedule (step -> lr,
+    read at the update count, 0 for the first update, as optax reads
+    it)."""
+    factory = OPTIMIZERS[name]
+
+    def make(params):
+        opt = factory(params, learning_rate)
+        if callable(learning_rate):
+            opt.lr_schedule = learning_rate
+        return opt
+
+    return make
+
+
+def _per_example_view(v, batch_dim):
+    """Collapses any non-batch dims (e.g. per-token losses) to one value
+    per example."""
+    if v.ndim > 1:
+        return v.reshape(batch_dim, -1).mean(dim=1)
+    return v
+
+
+def _weighted_mean(v, weights):
+    """sum(v * w) / sum(w), 0 (not nan) on all-zero weights."""
+    return (v * weights).sum() / torch.clamp(weights.sum(), min=1e-9)
+
+
+def _accepts(fn, name):
+    """Whether `fn` takes a parameter `name` (a metric's opt-in
+    `mask=`, a model's `generator=`)."""
+    try:
+        return name in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _first_leaf(tree):
+    if isinstance(tree, dict):
+        return _first_leaf(next(iter(tree.values())))
+    if isinstance(tree, (list, tuple)):
+        return _first_leaf(tree[0])
+    return tree
+
+
+class TrainState:
+    """The step counter (train steps taken, micro-steps included), the
+    model (its parameters) and the optimizer (its state)."""
+
+    def __init__(self, step, model, optimizer):
+        self.step = step
+        self.model = model
+        self.optimizer = optimizer
+
+
+class Trainer:
+    """Keras-`model.fit` parity on one device."""
+
+    def __init__(self, model, optimizer="adam",
+                 loss="sparse_categorical_crossentropy",
+                 metrics=("accuracy",), mesh=None,
+                 param_sharding_rules=None, train_kwargs=None,
+                 eval_kwargs=None, seed=0, gradient_accumulation_steps=1,
+                 remat=False, zero1=False, fsdp=False, ema_decay=None,
+                 steps_per_execution=1, trainable=None):
+        """Constructor.
+
+        Args:
+            model: a `torch.nn.Module`; `model(x, **kwargs)` returns the
+                outputs. When its forward takes `generator`, each train
+                step passes a `torch.Generator` seeded from `seed` and the
+                step (the dropout draws).
+            optimizer: a name in OPTIMIZERS (optax's default learning
+                rates), a `make_optimizer(...)` spec, any callable
+                params -> `torch.optim.Optimizer`, or an optimizer already
+                built over the model's parameters.
+            loss: callable(outputs, labels) -> per-example loss, or a
+                name in LOSSES.
+            metrics: names in METRICS or callables (outputs, labels) ->
+                per-example values (or a scalar).
+            train_kwargs / eval_kwargs: extra forward kwargs for training
+                (e.g. {"deterministic": False}) / evaluation.
+            seed: the shuffle seed and the dropout generator's seed.
+            gradient_accumulation_steps: apply the averaged gradient of
+                every N steps (optax.MultiSteps semantics).
+        """
+        unported = {"mesh": mesh is not None,
+                    "param_sharding_rules": param_sharding_rules is not None,
+                    "remat": bool(remat), "zero1": bool(zero1),
+                    "fsdp": bool(fsdp), "ema_decay": ema_decay is not None,
+                    "steps_per_execution > 1": int(steps_per_execution) != 1,
+                    "trainable": trainable is not None}
+        for name, used in unported.items():
+            if used:
+                raise NotImplementedError(
+                    "Trainer({}) {}.".format(name, _NOT_PORTED))
+        if not isinstance(model, torch.nn.Module):
+            raise TypeError("model must be a torch.nn.Module; got "
+                            "{!r}.".format(type(model)))
+        self.model = model
+        self.optimizer_spec = optimizer
+        self.gradient_accumulation_steps = int(gradient_accumulation_steps)
+        if self.gradient_accumulation_steps < 1:
+            raise ValueError("gradient_accumulation_steps must be >= 1; "
+                             "got {}.".format(gradient_accumulation_steps))
+        if loss is sparse_categorical_crossentropy:
+            raise TypeError(
+                "sparse_categorical_crossentropy is a factory — call it "
+                "(e.g. loss=sparse_categorical_crossentropy(0.1)) or "
+                "use the string 'sparse_categorical_crossentropy'.")
+        self.loss_fn = LOSSES[loss] if isinstance(loss, str) else loss
+        self.metric_fns = {}
+        for m in metrics:
+            if isinstance(m, str):
+                self.metric_fns[m] = METRICS[m]
+            else:
+                self.metric_fns[getattr(m, "__name__", "metric")] = m
+        self.train_kwargs = dict(train_kwargs or {})
+        self.eval_kwargs = dict(eval_kwargs or {})
+        self.seed = seed
+        self.state = None
+        self.optimizer = None
+        self._updates = 0
+        self._takes_generator = _accepts(model.forward, "generator")
+
+    @property
+    def device(self):
+        return next(self.model.parameters()).device
+
+    # -- state construction --------------------------------------------
+
+    def build(self, sample_x=None, variables=None):
+        """Creates the optimizer (lazily called by fit). `variables`: a
+        state dict (name -> tensor or array) to start from, e.g. from
+        `params_from_flax`; keys and shapes must match the model's."""
+        if self.state is not None:
+            if variables is not None:
+                raise RuntimeError(
+                    "build(variables=...) called on an already-built "
+                    "Trainer: the provided weights would be ignored. "
+                    "Load weights before the first fit/evaluate/"
+                    "predict/build call.")
+            return self.state
+        if variables is not None:
+            own = self.model.state_dict()
+            given = {k: torch.as_tensor(np.asarray(v) if not isinstance(
+                v, torch.Tensor) else v) for k, v in variables.items()}
+            if set(given) != set(own) or any(
+                    tuple(given[k].shape) != tuple(own[k].shape)
+                    for k in own):
+                raise ValueError(
+                    "build(variables=...): provided params do not match "
+                    "the model's structure/shapes — wrong checkpoint for "
+                    "this model configuration?")
+            self.model.load_state_dict(given)
+        spec = self.optimizer_spec
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        if isinstance(spec, torch.optim.Optimizer):
+            optimizer = spec
+        elif isinstance(spec, str):
+            optimizer = OPTIMIZERS[spec](params)
+        else:
+            optimizer = spec(params)
+        self.optimizer = optimizer
+        self._updates = 0
+        self.state = TrainState(0, self.model, optimizer)
+        return self.state
+
+    # -- steps ----------------------------------------------------------
+
+    def _to_device(self, tree):
+        dev = self.device
+
+        def put(a):
+            if a is None:
+                return None
+            t = torch.as_tensor(np.asarray(a))
+            if t.dtype.is_floating_point:
+                t = t.float()
+            elif t.dtype != torch.bool:
+                t = t.long()
+            return t.to(dev, non_blocking=True)
+
+        return _tree_map(put, tree)
+
+    def _step_generator(self, step):
+        """The dropout generator of train step `step`: seeded from the
+        Trainer's seed folded with the step (threefry), on the model's
+        device."""
+        key = data_lib.fold_in(data_lib.prng_key(self.seed), step)
+        seed = (int(key[0]) << 32 | int(key[1])) & 0x7FFFFFFFFFFFFFFF
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _metric_logs(self, outputs, y, mask, per_row):
+        """Each metric's mean over the batch, weighted by `mask` [B]:
+        per-example values take the weighted mean; a scalar is kept as
+        it is, unless the batch needs per-row weighting (`per_row`:
+        sample weights or padded rows) and the metric cannot take the
+        mask, which raises."""
+        logs = {}
+        lead = mask.shape[0]
+        for name, fn in self.metric_fns.items():
+            masked = _accepts(fn, "mask")
+            v = torch.as_tensor(fn(outputs, y, mask=mask) if masked
+                                else fn(outputs, y))
+            if v.ndim >= 1:
+                logs[name] = _weighted_mean(
+                    _per_example_view(v, lead).float(), mask)
+            elif per_row and not masked:
+                raise ValueError(
+                    "Custom metric {!r} returns a scalar and cannot "
+                    "apply per-row weights (sample_weight or a padded "
+                    "tail batch). Give it a mask-aware signature "
+                    "fn(outputs, y, mask=...) or return per-example "
+                    "values.".format(name))
+            else:
+                logs[name] = v.float()
+        return logs
+
+    def _train_step(self, batch, weighted):
+        if weighted:
+            x, y, w = self._to_device(batch)
+        else:
+            x, y = self._to_device(batch)
+            w = None
+        self.model.train()
+        kwargs = dict(self.train_kwargs)
+        if self._takes_generator:
+            kwargs["generator"] = self._step_generator(self.state.step)
+        outputs = self.model(x, **kwargs)
+        per_example = self.loss_fn(outputs, y)
+        if w is not None:
+            # Weighted Keras semantics: mean(per_example * w), not
+            # normalized by sum(w).
+            per_example = _per_example_view(per_example, w.shape[0]) * w
+        loss = per_example.mean()
+        k = self.gradient_accumulation_steps
+        (loss / k if k > 1 else loss).backward()
+        self.state.step += 1
+        if self.state.step % k == 0:
+            schedule = getattr(self.optimizer, "lr_schedule", None)
+            if schedule is not None:
+                lr = float(schedule(self._updates))
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self._updates += 1
+        with torch.no_grad():
+            mask = w if w is not None else torch.ones(
+                (_first_leaf(outputs).shape[0],), device=loss.device)
+            logs = {"loss": loss.detach()}
+            logs.update(self._metric_logs(_tree_map(torch.Tensor.detach,
+                                                    outputs), y, mask,
+                                          weighted))
+            if weighted:
+                logs["_batch_weight"] = w.sum()
+        return logs
+
+    # -- fit ------------------------------------------------------------
+
+    def fit(self, x=None, y=None, epochs=1, batch_size=32, shuffle=True,
+            validation_data=None, validation_split=0.0, initial_epoch=0,
+            callbacks=(), steps_per_epoch=None, verbose=True,
+            sample_weight=None, class_weight=None, resume_from=None,
+            resume=None, cache=None, input_cast=None, warm_start=False):
+        """Trains the model; returns a history dict of per-epoch logs
+        (the epoch means of loss and metrics, steps_per_sec, and val_*
+        from `validation_data` / `validation_split`).
+
+        As the JAX Trainer: array inputs, shuffled per epoch from `seed`
+        (`data.epoch_permutation`), the tail batch dropped; `epochs` is
+        the final epoch bound (`initial_epoch` the first);
+        `steps_per_epoch` caps each epoch; `sample_weight` /
+        `class_weight` weight the loss (mean(per_example * w)) and the
+        metrics (weighted means); `validation_split` holds out the last
+        fraction of the arrays before shuffling.
+        """
+        if callbacks:
+            raise NotImplementedError("fit(callbacks=...) " + _NOT_PORTED
+                                      + ".")
+        for name, value in (("resume_from", resume_from), ("resume", resume),
+                            ("cache", cache), ("input_cast", input_cast),
+                            ("warm_start", warm_start or None)):
+            if value not in (None, "none"):
+                raise NotImplementedError("fit({}=...) {}.".format(
+                    name, _NOT_PORTED))
+        if validation_split:
+            if not 0.0 < validation_split < 1.0:
+                raise ValueError(
+                    "validation_split must be in (0, 1); got {}."
+                    .format(validation_split))
+            if validation_data is not None:
+                raise ValueError(
+                    "Pass validation_split OR validation_data, not both.")
+            n = np.asarray(_first_leaf(x)).shape[0]
+            split = int(n * (1.0 - validation_split))
+            if split == 0 or split == n:
+                raise ValueError(
+                    "validation_split={} leaves an empty {} set for {}"
+                    " examples.".format(
+                        validation_split,
+                        "training" if split == 0 else "validation", n))
+            take = lambda lo, hi: _tree_map(lambda a: np.asarray(a)[lo:hi],
+                                            x)
+            y_arr = np.asarray(y)
+            if sample_weight is not None:
+                sw = np.asarray(sample_weight, np.float32)
+                validation_data = (take(split, n), y_arr[split:], sw[split:])
+                sample_weight = sw[:split]
+            else:
+                validation_data = (take(split, n), y_arr[split:])
+            x, y = take(0, split), y_arr[:split]
+        if class_weight is not None:
+            labels = None if y is None else np.asarray(y)
+            if labels is None or labels.ndim != 1:
+                raise ValueError(
+                    "class_weight= needs 1-D integer labels `y`.")
+            cw = np.ones(labels.shape[0], np.float32)
+            for label, weight in class_weight.items():
+                cw[labels == label] = float(weight)
+            sample_weight = (cw if sample_weight is None
+                             else np.asarray(sample_weight, np.float32) * cw)
+        ds_kwargs = {}
+        if sample_weight is not None:
+            ds_kwargs["sample_weight"] = sample_weight
+        dataset = data_lib.as_dataset(x, y, batch_size=batch_size,
+                                      shuffle=shuffle, seed=self.seed,
+                                      **ds_kwargs)
+        weighted = dataset.sample_weight is not None
+        if steps_per_epoch is None:
+            steps_per_epoch = dataset.steps_per_epoch
+        # The JAX Trainer peeks one batch to build (which draws epoch 0's
+        # order): the training epochs then draw from epoch 1 on. The peek
+        # is kept so the batches match the JAX package's.
+        sample = next(iter(dataset))
+        self.build(sample[0] if isinstance(sample, tuple) else sample)
+
+        history = {}
+        for epoch in range(initial_epoch, epochs):
+            step_logs = []
+            count = 0
+            t0 = time.time()
+            runtime.set_phase("step")
+            for i, batch in enumerate(dataset):
+                if i >= steps_per_epoch:
+                    break
+                step_logs.append(self._train_step(batch, weighted))
+                count += 1
+            runtime.set_phase("boundary")
+            if count:
+                self._post_epoch_logs(step_logs, count, t0, epoch,
+                                      validation_data, batch_size, history,
+                                      verbose)
+        runtime.set_phase(None)
+        return history
+
+    def _post_epoch_logs(self, step_logs, count, t0, epoch, validation_data,
+                         batch_size, history, verbose):
+        """Epoch end: reduce the step logs on the device, fetch them once
+        (`runtime.device_fetch`), validate, append to history."""
+        if "_batch_weight" in step_logs[0]:
+            # Weighted fit: metrics re-weight each batch's weighted mean
+            # by its weight sum; the loss is the plain per-step mean.
+            ws = torch.stack([l["_batch_weight"] for l in step_logs])
+            total_w = torch.clamp(ws.sum(), min=1e-9)
+            dev_logs = {}
+            for k in step_logs[0]:
+                if k == "_batch_weight":
+                    continue
+                vals = torch.stack([l[k] for l in step_logs])
+                dev_logs[k] = (vals.mean() if k == "loss"
+                               else (vals * ws).sum() / total_w)
+        else:
+            dev_logs = {k: torch.stack([l[k] for l in step_logs]).mean()
+                        for k in step_logs[0]}
+        fetched = runtime.device_fetch(dev_logs)
+        elapsed = max(time.time() - t0, 1e-9)
+        logs = {k: float(v) for k, v in fetched.items()}
+        logs["steps_per_sec"] = count / elapsed
+        if validation_data is not None:
+            if len(validation_data) == 3:
+                val_x, val_y, val_sw = validation_data
+            else:
+                (val_x, val_y), val_sw = validation_data, None
+            val_logs = self.evaluate(val_x, val_y, batch_size=batch_size,
+                                     verbose=False, sample_weight=val_sw)
+            logs.update({"val_" + k: v for k, v in val_logs.items()})
+        for k, v in logs.items():
+            history.setdefault(k, []).append(v)
+        if verbose:
+            logger.info("epoch %d: %s", epoch,
+                        {k: round(v, 4) for k, v in logs.items()})
+
+    # -- evaluation -----------------------------------------------------
+
+    def _require_built(self):
+        if self.state is None:
+            raise RuntimeError("Model is not built; call fit() first or "
+                               "build() with a sample batch.")
+
+    @torch.no_grad()
+    def evaluate(self, x, y=None, batch_size=32, verbose=True, steps=None,
+                 sample_weight=None):
+        """Exact example-weighted mean loss/metrics over the dataset: the
+        tail batch is padded by wrapping and the padded rows masked out
+        (times any `sample_weight`), each batch weighted by its real
+        weight. Totals stay on the device; one fetch at the end."""
+        self._require_built()
+        ds_kwargs = {}
+        if sample_weight is not None:
+            ds_kwargs["sample_weight"] = sample_weight
+        dataset = data_lib.as_dataset(x, y, batch_size=batch_size,
+                                      drop_remainder=False, **ds_kwargs)
+        weighted = dataset.sample_weight is not None
+        if steps is None:
+            steps = dataset.steps_per_epoch
+        self.model.eval()
+        totals, weight = {}, 0.0
+        for i, batch in enumerate(dataset):
+            if i >= steps:
+                break
+            if weighted:
+                xb, yb, wb = batch
+            else:
+                (xb, yb), wb = batch, None
+            real = min(batch_size, dataset.num_examples - i * batch_size)
+            mask = (np.arange(batch_size) < real).astype(np.float32)
+            padded = real < batch_size
+            if wb is not None:
+                mask = mask * np.asarray(wb, np.float32)
+            xb, yb, mask_t = self._to_device((xb, yb, mask))
+            outputs = self.model(xb, **self.eval_kwargs)
+            per_ex = _per_example_view(self.loss_fn(outputs, yb),
+                                       mask_t.shape[0])
+            logs = {"loss": _weighted_mean(per_ex, mask_t)}
+            logs.update(self._metric_logs(outputs, yb, mask_t,
+                                          padded or weighted))
+            agg = mask_t.sum() if weighted else float(real)
+            weight = weight + agg
+            for k, v in logs.items():
+                totals[k] = totals.get(k, 0.0) + v * agg
+        weight, totals = runtime.device_fetch((weight, totals))
+        weight = float(weight)
+        if weight == 0.0:
+            if weighted:
+                raise ValueError(
+                    "evaluate(): total sample_weight is zero — no "
+                    "example carries weight, so no mean exists.")
+            raise ValueError("evaluate() received an empty dataset.")
+        logs = {k: float(v) / weight for k, v in totals.items()}
+        if verbose:
+            logger.info("evaluate: %s",
+                        {k: round(v, 4) for k, v in logs.items()})
+        return logs
+
+    @torch.no_grad()
+    def predict(self, x, batch_size=32):
+        """Stacked model outputs for `x` as numpy (the model's output
+        structure kept), batch by batch, the padded tail cut off."""
+        self._require_built()
+        dataset = data_lib.as_dataset(x, None, batch_size=batch_size,
+                                      drop_remainder=False)
+        self.model.eval()
+        outs = []
+        for xb in dataset:
+            outs.append(runtime.device_fetch(
+                self.model(self._to_device(xb), **self.eval_kwargs)))
+        n = dataset.num_examples
+
+        def join(*leaves):
+            if np.ndim(leaves[0]) == 0:
+                return np.stack(leaves)
+            return np.concatenate(leaves, axis=0)[:n]
+
+        first = outs[0]
+        if isinstance(first, dict):
+            return {k: join(*[o[k] for o in outs]) for k in first}
+        if isinstance(first, (list, tuple)):
+            return type(first)(join(*[o[i] for o in outs])
+                               for i in range(len(first)))
+        return join(*outs)
+
+    def summary(self, print_fn=None):
+        """Keras `model.summary()` parity: parameter counts per top-level
+        module (each block of a ModuleList on its own row), totals and
+        parameter bytes. Returns the text."""
+        self._require_built()
+        rows = {}
+        for name, p in self.model.named_parameters():
+            parts = name.split(".")
+            key = ".".join(parts[:2]) if (
+                len(parts) > 2 and parts[1].isdigit()) else parts[0]
+            rows[key] = rows.get(key, 0) + p.numel()
+        total = sum(rows.values())
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in self.model.parameters())
+        width = max([len(n) for n in rows] + [len("Total params")])
+        lines = ["{:<{w}}  {:>14}".format("Module", "Params", w=width),
+                 "-" * (width + 16)]
+        for name in sorted(rows):
+            lines.append("{:<{w}}  {:>14,}".format(name, rows[name],
+                                                   w=width))
+        lines.append("-" * (width + 16))
+        lines.append("{:<{w}}  {:>14,}".format("Total params", total,
+                                               w=width))
+        lines.append("{:<{w}}  {:>14}".format(
+            "Param bytes", "{:,}".format(nbytes), w=width))
+        text = "\n".join(lines)
+        (print_fn or (lambda t: logger.info("%s", t)))(text)
+        return text
+
+
+__all__ = ["LOSSES", "METRICS", "OPTIMIZERS", "TrainState", "Trainer",
+           "make_optimizer", "sparse_categorical_crossentropy"]

@@ -1,0 +1,164 @@
+"""The port's attention against the JAX package on the CPU: `mha_reference`
+(the flash kernels' plain version, which CPU tensors take), its
+autograd gradients and `mha_backward_reference` (the backward kernels'
+plain version) against the JAX `flash_attention` run in Pallas
+interpret mode and `jax.vjp`, for every variant of the contract.
+
+Tolerance: 1e-5 (f32 on both sides; the Pallas kernels sum blockwise
+with an online softmax, the plain version in one pass).
+"""
+
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cloud_tpu.ops.attention  # noqa: F401
+from cloud_tpu_torch.ops import attention as tatt
+
+# The JAX package re-exports its `attention` function under the module's
+# name, so the module is taken from sys.modules.
+jatt = sys.modules["cloud_tpu.ops.attention"]
+
+TOL = 1e-5
+B, S, H, D = 2, 40, 4, 16
+
+VARIANTS = {
+    "causal": dict(causal=True),
+    "noncausal": dict(causal=False),
+    "mask": dict(causal=True, mask=True),
+    "mask_noncausal": dict(causal=False, mask=True),
+    "gqa": dict(causal=True, kv_heads=2),
+    "window": dict(causal=True, window=12),
+    "window_mask": dict(causal=True, window=6, mask=True),
+    "softcap": dict(causal=True, logit_softcap=2.0),
+    "softcap_gqa_mask": dict(causal=True, logit_softcap=2.0, kv_heads=2,
+                             mask=True),
+    "scale": dict(causal=True, sm_scale=0.3),
+}
+
+
+def _case(variant, seed=0):
+    kw = dict(VARIANTS[variant])
+    kv_heads = kw.pop("kv_heads", H)
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, kv_heads, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, kv_heads, D)).astype(np.float32)
+    g = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    if kw.pop("mask", False):
+        mask = rng.random((B, S)) < 0.6
+        mask[0, :9] = False       # rows 0-8 of example 0: no allowed key
+        mask[1] = False           # every row of example 1
+        kw["mask"] = mask
+    return q, k, v, g, kw
+
+
+def _jax(q, k, v, g, kw):
+    jkw = dict(kw)
+    if "mask" in jkw:
+        jkw["mask"] = jnp.asarray(jkw["mask"])
+
+    def f(q, k, v):
+        # S = 40 with 16-wide blocks: the JAX side pads to 48 and masks.
+        return jatt.flash_attention(q, k, v, block_q=16, block_k=16,
+                                    interpret=True, **jkw)
+
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(a) for a in (out,) + vjp(jnp.asarray(g))]
+
+
+def _port(q, k, v, g, kw, fn):
+    tkw = dict(kw)
+    if "mask" in tkw:
+        tkw["mask"] = torch.from_numpy(tkw["mask"])
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = fn(*ts, **tkw)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(g))
+    return [out.detach().numpy()] + [t.numpy() for t in grads]
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_reference_and_gradients_match_jax_flash(variant):
+    q, k, v, g, kw = _case(variant)
+    want = _jax(q, k, v, g, kw)
+    got = _port(q, k, v, g, kw, tatt.mha_reference)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL, err_msg=name)
+    if "mask" in kw:
+        dead = ~kw["mask"][1]
+        assert dead.all() and (got[0][1] == 0).all()
+        assert (got[1][1] == 0).all()
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_backward_reference_matches_jax_grads(variant):
+    """The backward kernels' plain version, given delta = rowsum(dO * O)
+    from the JAX forward's output, against `jax.vjp` of the JAX flash
+    attention."""
+    q, k, v, g, kw = _case(variant)
+    out, *want = _jax(q, k, v, g, kw)
+    tkw = dict(kw)
+    if "mask" in tkw:
+        tkw["mask"] = torch.from_numpy(tkw["mask"])
+    delta = torch.from_numpy((g * out).sum(-1)).transpose(1, 2)
+    got = tatt.mha_backward_reference(
+        *(torch.from_numpy(a) for a in (q, k, v, g)), delta, **tkw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("fn", ["flash_attention", "attention"])
+def test_cpu_tensors_take_the_plain_version(fn):
+    q, k, v, g, kw = _case("softcap_gqa_mask", seed=1)
+    want = _port(q, k, v, g, kw, tatt.mha_reference)
+    before = dict(tatt.launches)
+    got = _port(q, k, v, g, kw, getattr(tatt, fn))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert tatt.launches == before
+
+
+def test_argument_errors_match_jax():
+    q = torch.zeros((1, 8, 4, 16))
+    k = torch.zeros((1, 8, 3, 16))
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        tatt.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="identical shapes"):
+        tatt.flash_attention(q, q, k)
+    with pytest.raises(ValueError, match="requires causal=True"):
+        tatt.flash_attention(q, q, q, causal=False, window=4)
+    with pytest.raises(ValueError, match="mask must be"):
+        tatt.flash_attention(q, q, q, mask=torch.ones((1, 7), dtype=bool))
+    with pytest.raises(ValueError, match="Unknown attention impl"):
+        tatt.attention(q, q, q, impl="ring")
+
+
+def test_repeat_kv_matches_jax():
+    k = np.random.default_rng(2).normal(size=(2, 5, 2, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        tatt.repeat_kv(torch.from_numpy(k), 6).numpy(),
+        np.asarray(jatt.repeat_kv(jnp.asarray(k), 6)))
+
+
+def test_cost_counts_allowed_pairs():
+    """GPT-2 training shape (B 8, S 1024, H 12, D 64, bf16, causal): the
+    sizes PERF.md's bounds use."""
+    cost = tatt.flash_attention_cost(8, 1024, 12, 12, 64, causal=True)
+    pairs = 8 * 12 * 1024 * 1025 / 2
+    assert cost["forward"]["flops"] == 4 * pairs * 64
+    assert cost["dq"]["flops"] == 6 * pairs * 64
+    assert cost["dkdv"]["flops"] == 8 * pairs * 64
+    io = 8 * 1024 * 12 * 64 * 2
+    assert cost["forward"]["bytes_moved"] == 4 * io + 8 * 12 * 1024 * 4
+    assert cost["dkdv"]["bytes_moved"] == 6 * io + 2 * 8 * 12 * 1024 * 4
+    assert tatt.allowed_pairs(16, causal=True, window=4) == 4 * 16 - 6
+    assert tatt.allowed_pairs(16, causal=False) == 256
+    window = tatt.flash_attention_cost(2, 16, 4, 2, 64, window=4)
+    assert window["forward"]["flops"] == 4 * 2 * 4 * (4 * 16 - 6) * 64

@@ -4,9 +4,10 @@ file imports no JAX, so it runs on a machine with PyTorch alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerance: 2e-2 on bf16 outputs (the kernel and the plain version sum
-in another order and round P and the output to bf16 at other points);
-rows with no allowed key must be exact zeros.
+Paged attention tolerance: 2e-2 on bf16 outputs (the kernel and the
+plain version sum in another order and round P and the output to bf16 at
+other points); rows with no allowed key must be exact zeros. The flash
+kernels' tolerances are stated above their tests.
 """
 
 import sys
@@ -99,3 +100,112 @@ def test_kernel_rejects_what_it_does_not_take():
                             .transpose(0, 1), inp["key_pages"],
                             inp["value_pages"], inp["page_table"],
                             inp["allowed"])
+
+
+# -- flash attention: forward, dq, dk/dv ---------------------------------
+#
+# Tolerance, element by element, against the plain versions run in f32 on
+# the kernels' inputs (the forward: `mha_reference`; dq and dk/dv:
+# `mha_backward_reference` given the delta = rowsum(dO O) that the
+# backward computes from the forward's output): |kernel - plain| <=
+# rtol |plain| + atol rms(row), a row being the D values of one
+# (example, position, head), its rms floored at 1e-2 of the tensor's.
+# f32: rtol 0, atol 1e-4 (summation order). bf16: rtol 2^-8 (the
+# outputs' rounding to bf16), atol 3e-2 (P and dS rounded to bf16 before
+# the second product).
+
+FLASH_VARIANTS = {
+    "causal": dict(causal=True),
+    "noncausal": dict(causal=False),
+    "mask": dict(causal=True, mask=True),
+    "window": dict(causal=True, window=16),
+    # q x 5: logits of std 5 against the cap of 5, so the cap bends them.
+    "softcap": dict(causal=True, logit_softcap=5.0, q_scale=5.0),
+}
+
+
+def _flash_case(dtype, head_dim, variant, batch=2, seq=80, heads=4,
+                kv_heads=2, seed=0):
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    kw = dict(FLASH_VARIANTS[variant])
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=dtype,
+                            device=dev, requires_grad=True)
+
+    q = t(batch, seq, heads, head_dim, scale=kw.pop("q_scale", 1.0))
+    k = t(batch, seq, kv_heads, head_dim)
+    v = t(batch, seq, kv_heads, head_dim)
+    dout = torch.tensor(rng.normal(size=(batch, seq, heads, head_dim)),
+                        dtype=dtype, device=dev)
+    if kw.pop("mask", False):
+        mask = rng.random((batch, seq)) < 0.7
+        mask[0] = False                     # every row of example 0 dead
+        kw["mask"] = torch.tensor(mask, device=dev)
+    return q, k, v, dout, kw
+
+
+def _close(got, want, dtype):
+    rtol, atol = (0.0, 1e-4) if dtype == torch.float32 else (2.0 ** -8, 3e-2)
+    assert got.dtype == dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    rms = torch.clamp(want.square().mean(-1, keepdim=True).sqrt(),
+                      min=1e-2 * want.square().mean().sqrt().item())
+    err = (got - want).abs()
+    ratio = torch.where(err == 0, torch.zeros_like(err),
+                        err / (rtol * want.abs() + atol * rms))
+    worst = ratio.max().item()
+    assert worst <= 1.0, "error {} of the bound (rtol {} + atol {} x row " \
+        "rms)".format(worst, rtol, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(FLASH_VARIANTS))
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_match_plain_version(dtype, head_dim, variant):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import attention as tatt
+
+    q, k, v, dout, kw = _flash_case(dtype, head_dim, variant)
+    before = dict(tatt.launches)
+    out = tatt.flash_attention(q, k, v, **kw)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkdv"):
+        assert tatt.launches[name] == before[name] + 1
+    f32 = [x.detach().float() for x in (q, k, v, dout)]
+    delta = (f32[3] * out.detach().float()).sum(-1).transpose(1, 2)
+    _close(out, tatt.mha_reference(*f32[:3], **kw), dtype)
+    grads = tatt.mha_backward_reference(*f32, delta, **kw)
+    for got, want in zip((dq, dk, dv), grads):
+        _close(got, want, dtype)
+    if "mask" in kw:
+        assert (out[0] == 0).all() and (dq[0] == 0).all()
+        assert (dk[0] == 0).all() and (dv[0] == 0).all()
+    assert torch.isfinite(out).all() and torch.isfinite(dq).all()
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import attention as tatt
+
+    dev = torch.device("cuda")
+    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="device"):
+        tatt.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="CPU or CUDA|device"):
+        tatt.flash_attention(q.cpu(), q, q)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        tatt.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="reference"):
+        tatt.attention(q, q, q, impl="reference")

@@ -1,9 +1,11 @@
-"""Decode-mode `TransformerLM`, its parameter converter and `generate()`:
-the PyTorch port against the JAX package on the same parameters and
-tokens, at a small f32 size on the CPU.
+"""`TransformerLM` (decode and the training forward with its parameter
+gradients), its parameter converters and `generate()`: the PyTorch port
+against the JAX package on the same parameters and tokens, at a small
+f32 size on the CPU.
 
-Tolerance: logits within 1e-5 (f32 on both sides; the frameworks sum
-the same products in another order, at |logit| < ~2); 1e-4 over int8
+Tolerance: logits and gradients within 1e-5 (f32 on both sides; the
+frameworks sum the same products in another order, at |logit| < ~2);
+1e-4 over int8
 pages, where a K/V value that lands within an f32 rounding of a
 quantization boundary may round to the neighbouring int8 step. The
 int8 page write itself is compared bit for bit: it is elementwise f32
@@ -18,7 +20,8 @@ import torch
 
 from cloud_tpu.models import decoding as jdec
 from cloud_tpu.models import transformer as jtf
-from cloud_tpu_torch.models import TransformerLM, generate, params_from_flax
+from cloud_tpu_torch.models import (TransformerLM, generate, params_from_flax,
+                                    params_to_flax)
 from cloud_tpu_torch.models import transformer as ttf
 
 TOL = 1e-5
@@ -211,5 +214,96 @@ def test_warp_logits_matches_jax():
 
 
 def test_non_decode_forward_is_not_ported(port_model):
-    with pytest.raises(NotImplementedError, match="flash"):
-        port_model(torch.zeros((1, 4), dtype=torch.long))
+    """The non-decode forward is ported (see the tests below); the parts
+    of it that are not, the MoE MLP and bidirectional blocks, raise."""
+    with pytest.raises(NotImplementedError, match="moe_experts"):
+        TransformerLM(moe_experts=4, device="cpu", **CFG)
+    with pytest.raises(NotImplementedError, match="TransformerEncoder"):
+        ttf.TransformerBlock(64, 4, 128, 1e-5, None, causal=False)
+    logits = port_model(torch.zeros((1, 4), dtype=torch.long))
+    assert logits.shape == (1, 4, CFG["vocab_size"])
+
+
+def _jax_train_loss(model, tokens, labels, mask):
+    def loss(params):
+        logits = model.apply({"params": params}, jnp.asarray(tokens),
+                             None if mask is None else jnp.asarray(mask))
+        logp = jax.nn.log_softmax(logits)
+        nll = -jnp.take_along_axis(logp, jnp.asarray(labels)[..., None],
+                                   -1)
+        return jnp.mean(nll), logits
+    return loss
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_training_forward_and_gradients_match_jax(jax_model, port_model,
+                                                  masked):
+    """The non-decode forward (flash attention, which CPU tensors run
+    through its plain version) and every parameter's gradient against
+    jax.grad of the JAX model with attention_impl="flash" (interpret
+    mode), at S = 40 (not a block multiple)."""
+    model, params = jax_model
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, 64, size=(2, 40))
+    labels = rng.integers(0, 64, size=(2, 40))
+    mask = None
+    if masked:
+        mask = np.ones((2, 40), bool)
+        mask[1, 25:] = False
+    flash = model.clone(attention_impl="flash")
+    (jl, jlogits), jgrads = jax.value_and_grad(
+        _jax_train_loss(flash, tokens, labels, mask), has_aux=True)(params)
+    port_model.zero_grad(set_to_none=True)
+    logits = port_model(torch.from_numpy(tokens),
+                        None if mask is None else torch.from_numpy(mask))
+    loss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, 64), torch.from_numpy(labels).reshape(-1))
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(loss.item(), float(jl), atol=TOL, rtol=TOL)
+    grads = params_to_flax({n: p.grad for n, p in
+                            port_model.named_parameters()},
+                           CFG["num_heads"])
+    for path, want in jax.tree_util.tree_leaves_with_path(jgrads):
+        node = grads
+        for entry in path:
+            node = node[entry.key]
+        np.testing.assert_allclose(node, np.asarray(want), atol=TOL,
+                                   rtol=TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+    port_model.zero_grad(set_to_none=True)
+
+
+def test_params_to_flax_inverts_params_from_flax(jax_model, port_model):
+    _, params = jax_model
+    back = params_to_flax(port_model.state_dict(), CFG["num_heads"])
+    want = jax.tree_util.tree_leaves_with_path(jax.device_get(params))
+    assert len(want) == len(jax.tree_util.tree_leaves(back))
+    for path, leaf in want:
+        node = back
+        for entry in path:
+            node = node[entry.key]
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+    with pytest.raises(ValueError, match="unmapped"):
+        params_to_flax({"blocks.0.attention.rope.weight": torch.zeros(2)},
+                       4)
+
+
+def test_dropout_needs_a_generator_and_is_inverted(port_model):
+    """Dropout only with deterministic=False and a generator; kept values
+    are scaled by 1 / (1 - rate)."""
+    x = torch.ones((4, 1000))
+    gen = torch.Generator().manual_seed(0)
+    y = ttf._dropout(x, 0.25, gen)
+    kept = y != 0
+    assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / 0.75))
+    assert 0.7 < kept.float().mean().item() < 0.8
+    drop = TransformerLM(compute_dtype=torch.float32, device="cpu",
+                         dropout_rate=0.5, **CFG)
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    a = drop(tok)
+    assert torch.equal(a, drop(tok, deterministic=False))
+    b = drop(tok, deterministic=False,
+             generator=torch.Generator().manual_seed(1))
+    assert not torch.equal(a, b)
