@@ -24,17 +24,28 @@ then:
    against `mha_reference` in f32 on the same inputs and its autograd
    gradients, element by element: out, lse, dq, dk, dv at the GPT-2
    training shape (B 8, S 1024, H 12, D 64, causal; bf16 and f32), a
-   Llama shape (B 2, S 2048, H 32, H_kv 8, D 128, bf16), and at the
+   Llama shape (B 2, S 2048, H 32, H_kv 8, D 128, bf16), TinyLlama's
+   training shape (B 4, S 2048, H 32, H_kv 4, D 64, bf16), and at the
    GPT-2 shape with a key mask that leaves rows with no key, window
    256, softcap 50 (logits scaled to reach the cap), S 1000 and
-   causal=False; then times each kernel at the GPT-2 shape beside its
-   bound, the plain version and scaled_dot_product_attention (forward;
-   forward + backward), which the port never calls;
-4. serves 16 requests through `Scheduler` on GPT-2 small (random
+   causal=False; then times each kernel at the GPT-2 and the TinyLlama
+   shapes beside its bound, the plain version and
+   scaled_dot_product_attention (forward; forward + backward), which the
+   port never calls;
+4. holds the fused RMSNorm kernels (with and without the residual add)
+   against `rmsnorm_residual_reference` at rows 8192 and 8191 x D 2048,
+   bf16 and f32 (h bit for bit, normed element by element), and times
+   them beside the bound, the plain version and F.rms_norm; holds the
+   fused SwiGLU kernels (gate|up, down) against the plain computation
+   with the same rounding points at rows 8192, 1000 and 8 x D 2048 x
+   d_ff 5632 (silu; gelu_tanh and gelu at rows 1024; f32 at a small
+   shape), and times them beside their bounds and the three F.linear
+   calls of the plain version;
+5. serves 16 requests through `Scheduler` on GPT-2 small (random
    weights from a seed), with fp pages; checks that every tick went
    through the kernel, that sampled requests equal solo `generate()`
    and that greedy tokens agree with an f32 teacher-forced forward;
-5. does the same with int8 pages and 8 requests, then times 20 ticks
+   does the same with int8 pages and 8 requests, then times 20 ticks
    of a full engine under torch.profiler (device busy share);
 6. trains GPT-2 small (bf16, batch 8, seq 1024) with
    `Trainer(optimizer=adamw on a warmup-cosine schedule).fit` for
@@ -48,8 +59,16 @@ then:
    earlier positions gets there); times steps (p50, tokens/s, MFU,
    device busy share under torch.profiler); then `evaluate` and
    `predict` on held-out sequences;
-7. prints the kernel table as one JSON line, the card line, and the
-   contract line `{"ok": true, "device": {...}}` last.
+7. trains TinyLlama-1.1B (`LlamaLM(**TINYLLAMA_1_1B)`, bf16, batch 4,
+   seq 2048) the same way for LLAMA_EPOCHS epochs of LLAMA_STEPS steps:
+   the one-step check (batch 1) against attention, norm and MLP all by
+   their plain versions; every step launching each flash and MLP kernel
+   once per layer and the norm kernels 2 x layers + 1 times; the loss
+   gate; step timing and the top kernels; `evaluate` and `predict`;
+8. prints the kernel table as one JSON line (one row per kernel and
+   path that launches it, with that path's launches and the times at
+   its shape), the card line, and the contract line
+   `{"ok": true, "device": {...}}` last.
 
 Any failure raises and exits non-zero. Without a CUDA card, or without
 the rest of the repository beside it, it exits non-zero before
@@ -353,7 +372,7 @@ def check_kernels(device):
     return rows
 
 
-# -- phases 4 and 5: serving -----------------------------------------
+# -- phase 5: serving ---------------------------------------------------
 
 def serve(model, ref_model, n_requests, n_sampled, kv_dtype, seed):
     import torch
@@ -511,6 +530,9 @@ FLASH_CASES = (
     ("gpt2_f32", "f32", (8, 1024, 12, 12, 64), dict(causal=True), None, 1),
     ("llama_bf16", "bf16", (2, 2048, 32, 8, 128), dict(causal=True), None,
      1),
+    # TinyLlama-1.1B's training shape: GQA group 8, head_dim 64.
+    ("tinyllama_bf16", "bf16", (4, 2048, 32, 4, 64), dict(causal=True), None,
+     1),
     ("gpt2_mask", "bf16", (8, 1024, 12, 12, 64), dict(causal=True), "dead",
      1),
     ("gpt2_window", "bf16", (8, 1024, 12, 12, 64),
@@ -524,6 +546,10 @@ FLASH_CASES = (
     ("gpt2_noncausal", "bf16", (8, 1024, 12, 12, 64), dict(causal=False),
      None, 1),
 )
+# The case at each training path's shape; its errors go into that path's
+# rows of the kernel table.
+FLASH_PATH_CASES = {"gpt2_bf16": "gpt2_train",
+                    "tinyllama_bf16": "tinyllama_train"}
 
 
 def flash_inputs(rng, dtype, shape, mask_kind, device, q_scale=1):
@@ -607,14 +633,14 @@ def check_flash_kernels(device):
     inputs, with the lse the forward kernel saved for the backward; dq,
     dk, dv element by element against `mha_backward_reference` on the
     backward's inputs, and end to end against mha_reference's autograd.
-    Returns (per-kernel max abs error over the main-path case gpt2_bf16,
-    details of every case)."""
+    Returns ({path: per-kernel max abs error over the case at that
+    training path's shape}, details of every case)."""
     import torch
     from cloud_tpu_torch.ops import attention as tatt
 
     rng = np.random.default_rng(10)
     details = {}
-    main_err = {}
+    path_err = {}
     for name, dtype, shape, kw, mask_kind, q_scale in FLASH_CASES:
         q, k, v, dout, mask = flash_inputs(rng, dtype, shape, mask_kind,
                                            device, q_scale)
@@ -681,28 +707,31 @@ def check_flash_kernels(device):
                     *[row[x]["row_normalized"] for x in keys],
                     *[row[x]["end_to_end_max_normalized"] for x in keys[1:]],
                     END_TO_END_TOL[dtype], lse_err))
-        if name == "gpt2_bf16":
-            main_err = {"flash_attention_fwd": row["out"]["max_abs_err"],
-                        "flash_attention_dq": row["dq"]["max_abs_err"],
-                        "flash_attention_dkdv": max(
-                            row["dk"]["max_abs_err"],
-                            row["dv"]["max_abs_err"])}
+        path = FLASH_PATH_CASES.get(name)
+        if path:
+            path_err[path] = {
+                "flash_attention_fwd": row["out"]["max_abs_err"],
+                "flash_attention_dq": row["dq"]["max_abs_err"],
+                "flash_attention_dkdv": max(row["dk"]["max_abs_err"],
+                                            row["dv"]["max_abs_err"])}
         del q, k, v, dout, out, lse, dq, dk, dv, plain, whole, delta
         del leaves, ref_leaves, f32
         torch.cuda.empty_cache()
-    return main_err, details
+    return path_err, details
 
 
-def time_flash_kernels(device):
-    """Each kernel at the GPT-2 training shape (bf16, causal) by CUDA
-    graph replays, beside its bound, the plain version (the forward by
-    graph replays; the backward, which computes dq, dk and dv together,
-    by `backward_ms`) and scaled_dot_product_attention (the same)."""
+def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
+    """Each kernel at a training shape (B, S, H, H_kv, D; bf16, causal;
+    GPT-2's by default) by CUDA graph replays, beside its bound, the
+    plain version (the forward by graph replays; the backward, which
+    computes dq, dk and dv together, by `backward_ms`) and
+    scaled_dot_product_attention (the same; enable_gqa for H_kv < H)."""
     import torch
     import torch.nn.functional as F
     from cloud_tpu_torch.ops import attention as tatt
 
-    batch, seq, heads, kv_heads, head_dim = 8, 1024, 12, 12, 64
+    batch, seq, heads, kv_heads, head_dim = shape
+    gqa = {"enable_gqa": True} if kv_heads != heads else {}
     rng = np.random.default_rng(11)
     q, k, v, dout, _ = flash_inputs(rng, "bf16",
                                     (batch, seq, heads, kv_heads, head_dim),
@@ -729,15 +758,16 @@ def time_flash_kernels(device):
 
     def sdpa_fwd():
         with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  **gqa)
 
     plain_f = timed_ms(plain_fwd)
     plain_b, plain_kernels = backward_ms(
         tatt.mha_reference(*leaves, causal=True), leaves, dout)
     lib_f = timed_ms(sdpa_fwd)
     lib_b, lib_kernels = backward_ms(
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), leaves,
-        dout.transpose(1, 2))
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa),
+        leaves, dout.transpose(1, 2))
     cost = tatt.flash_attention_cost(batch, seq, heads, kv_heads, head_dim,
                                      causal=True)
     for name, part, plain, lib in (
@@ -750,10 +780,10 @@ def time_flash_kernels(device):
         row["library_ms"] = lib
         row["flops"] = cost[part]["flops"]
         row["bytes"] = cost[part]["bytes_moved"]
-        log("kernel {} (B 8, S 1024, H 12, D 64, bf16, causal): {:.4f} ms "
-            "(bound {:.4f} ms by {}; {:.1f} TFLOP/s), plain {:.4f} ms, "
-            "library {:.4f} ms".format(
-                name, row["ms"], row["bound_ms"], row["bound_by"],
+        log("kernel {} (B {}, S {}, H {}, H_kv {}, D {}, bf16, causal): "
+            "{:.4f} ms (bound {:.4f} ms by {}; {:.1f} TFLOP/s), plain {:.4f} "
+            "ms, library {:.4f} ms".format(
+                name, *shape, row["ms"], row["bound_ms"], row["bound_by"],
                 row["flops"] / row["ms"] / 1e9, plain, lib))
     log("plain backward (dq+dk+dv) {:.4f} ms ({:g} kernels per call); sdpa "
         "backward {:.4f} ms ({:g} kernels per call); device time of the "
@@ -872,11 +902,9 @@ def train(device):
     import torch
     from cloud_tpu_torch.models import TransformerLM
     from cloud_tpu_torch.ops import attention as tatt
-    from cloud_tpu_torch.ops import paged_attention as _  # noqa: F401
     from cloud_tpu_torch.training import Trainer, make_optimizer
     from cloud_tpu_torch.training.schedules import warmup_cosine
 
-    pa = sys.modules["cloud_tpu_torch.ops.paged_attention"]
     model = TransformerLM(compute_dtype=torch.bfloat16, device=device,
                           seed=0, **GPT2_SMALL)
     n_train = TRAIN_BATCH * TRAIN_STEPS
@@ -893,22 +921,20 @@ def train(device):
     trainer = Trainer(model, optimizer=make_optimizer(
         "adamw", warmup_cosine(TRAIN_LR, total, total // 10)),
         metrics=("accuracy",), seed=0)
-    tatt.reset_launches()
-    pa.reset_launches()
+    reset_all_launches()
     t0 = time.monotonic()
     history = trainer.fit(x, y, batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
                           verbose=False)
     torch.cuda.synchronize()
     fit_s = time.monotonic() - t0
-    launches = dict(tatt.launches)
+    launches = all_launches()
     steps = trainer.state.step
-    want = model.num_layers * steps
-    if steps != TRAIN_EPOCHS * TRAIN_STEPS or any(
-            launches[k] != want for k in launches) or any(pa.launches.values()):
+    want = {k: (model.num_layers * steps if k in tatt.launches else 0)
+            for k in launches}
+    if steps != TRAIN_EPOCHS * TRAIN_STEPS or launches != want:
         raise AssertionError(
-            "fit launched {} (paged {}) over {} steps; expected {} (= "
-            "layers x steps) of each flash kernel".format(
-                launches, dict(pa.launches), steps, want))
+            "fit launched {} over {} steps; expected {} (layers x steps of "
+            "each flash kernel, no other)".format(launches, steps, want))
     losses = history["loss"]
     log("train fit: {} steps in {:.2f} s, history {}; entropy of the next "
         "token given the current one {:.4f} nats, gate {} x that".format(
@@ -920,27 +946,76 @@ def train(device):
             "entropy of the next token given the current one)".format(
                 losses[-1], LOSS_FALL, entropy))
 
-    # Step time: 10 more steps through the Trainer's step body, each
-    # closed by a synchronize; then 3 under torch.profiler.
     batches = [(x[i:i + TRAIN_BATCH], y[i:i + TRAIN_BATCH])
                for i in range(0, n_train, TRAIN_BATCH)]
+    step_s, times = time_steps(trainer, batches)
+    prof = profile_steps(trainer, batches, ("flash_",))
+    cost = tatt.flash_attention_cost(TRAIN_BATCH, TRAIN_SEQ,
+                                     model.num_heads, model.num_heads,
+                                     model.head_dim, causal=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = matmul_params(model)
+    # Forward + backward of attention without recomputation: 3 x the
+    # forward's two products, per layer.
+    step_flops = (6.0 * n_params * tokens
+                  + 3 * cost["forward"]["flops"] * model.num_layers)
+    mfu = step_flops / step_s / PEAK_FLOPS["bf16"]
+    val, pred_loss, val2 = evaluate_and_predict(trainer, x_val, y_val,
+                                                TRAIN_BATCH, TRAIN_SEQ,
+                                                model.vocab_size)
+    summary = {
+        "model": "GPT-2 small bf16", "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": steps, "history": history,
+        "peak_lr": TRAIN_LR, "next_token_entropy_given_current": entropy,
+        "fit_s": fit_s, "launches": launches, "one_step_check": check,
+        "step_p50_s": step_s, "step_times_s": times,
+        "tokens_per_s": tokens / step_s, "matmul_params": n_params,
+        "step_flops": step_flops, "mfu": mfu,
+        "device_busy_share": prof["device_busy_share"],
+        "flash_share_of_device": prof["matched_share_of_device"],
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "top_kernels": prof["top_kernels"],
+        "evaluate": val, "predict_loss_2_seqs": pred_loss,
+        "evaluate_loss_2_seqs": val2["loss"],
+    }
+    log("train: step p50 {:.2f} ms, {:.0f} tokens/s, MFU {:.4f}, device "
+        "busy {}, flash kernels {} of device time; evaluate {}".format(
+            step_s * 1e3, tokens / step_s, mfu, prof["device_busy_share"],
+            summary["flash_share_of_device"], json.dumps(val)))
+    log_top_kernels("train", prof["top_kernels"])
+    return launches, summary
+
+
+def time_steps(trainer, batches, n=10):
+    """Host wall time of `n` more steps through the Trainer's step body,
+    each closed by a synchronize: (p50 seconds, every step's seconds)."""
+    import torch
+
     times = []
-    for i in range(10):
+    for i in range(n):
         t1 = time.monotonic()
         trainer._train_step(batches[i % len(batches)], False)
         torch.cuda.synchronize()
         times.append(time.monotonic() - t1)
-    step_s = float(np.median(times))
+    return float(np.median(times)), times
+
+
+def profile_steps(trainer, batches, match, n=3):
+    """`n` steps under torch.profiler: the device busy share (the union
+    of the device events' intervals over the host wall time; events may
+    overlap, so their sum may exceed it), device ms per step, the share
+    of device time in kernels whose name holds one of `match`, and the
+    top 10 kernels by device time."""
+    import torch
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.monotonic()
-        for i in range(3):
-            trainer._train_step(batches[i], False)
+        for i in range(n):
+            trainer._train_step(batches[i % len(batches)], False)
         torch.cuda.synchronize()
         prof_wall_us = (time.monotonic() - t1) * 1e6
-    # Busy share: the union of the device events' intervals over the
-    # host wall time (events may overlap, so their sum may exceed it).
     spans, by_name = [], {}
     for evt in prof.events():
         # User annotations on the device timeline (Optimizer.step spans)
@@ -960,29 +1035,35 @@ def train(device):
         elif hi > end:
             device_us += hi - end
             end = hi
-    flash_us = sum(v for k, v in by_name.items() if "flash_" in k)
+    matched_us = sum(v for k, v in by_name.items()
+                     if any(m in k for m in match))
     total_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    top_kernels = [{"name": k[:120], "ms_per_step": v / 3e3,
-                    "share": v / total_us if total_us else None}
-                   for k, v in top]
-    cost = tatt.flash_attention_cost(TRAIN_BATCH, TRAIN_SEQ,
-                                     model.num_heads, model.num_heads,
-                                     model.head_dim, causal=True)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    n_params = matmul_params(model)
-    # Forward + backward of attention without recomputation: 3 x the
-    # forward's two products, per layer.
-    step_flops = (6.0 * n_params * tokens
-                  + 3 * cost["forward"]["flops"] * model.num_layers)
-    mfu = step_flops / step_s / PEAK_FLOPS["bf16"]
-    busy = (device_us / prof_wall_us) if device_us > 0 else None
+    return {
+        "device_busy_share": (device_us / prof_wall_us if device_us > 0
+                              else None),
+        "device_ms_per_step": total_us / 1e3 / n,
+        "matched_share_of_device": (matched_us / total_us if total_us
+                                    else None),
+        "top_kernels": [{"name": k[:120], "ms_per_step": v / 1e3 / n,
+                         "share": v / total_us if total_us else None}
+                        for k, v in top],
+    }
 
-    val = trainer.evaluate(x_val, y_val, batch_size=TRAIN_BATCH,
-                           verbose=False)
+
+def log_top_kernels(phase, top):
+    for row in top:
+        log("{} top kernel {:.3f} ms/step ({:.1%}): {}".format(
+            phase, row["ms_per_step"], row["share"] or 0.0, row["name"]))
+
+
+def evaluate_and_predict(trainer, x_val, y_val, batch, seq, vocab):
+    """`evaluate` on the held-out sequences and `predict` on the first
+    two, whose loss must equal `evaluate`'s on the same two. Returns
+    (evaluate logs, predict's loss, evaluate's logs on the two)."""
+    val = trainer.evaluate(x_val, y_val, batch_size=batch, verbose=False)
     pred = trainer.predict(x_val[:2], batch_size=2)
-    if pred.shape != (2, TRAIN_SEQ, model.vocab_size) or \
-            not np.isfinite(pred).all():
+    if pred.shape != (2, seq, vocab) or not np.isfinite(pred).all():
         raise AssertionError("predict gave {} {}".format(pred.shape,
                                                          pred.dtype))
     logp = pred - pred.max(-1, keepdims=True)
@@ -995,29 +1076,498 @@ def train(device):
             <= 1e-3 * max(1.0, val2["loss"])):
         raise AssertionError("predict's loss {} disagrees with evaluate's "
                              "{}".format(pred_loss, val2["loss"]))
+    return val, pred_loss, val2
+
+
+# -- phase 4: fused RMSNorm and fused SwiGLU against their plain versions --
+
+LLAMA_ROWS, LLAMA_D, LLAMA_F = 4 * 2048, 2048, 5632
+# Fused norm, per element (`compare`), against the plain version with an
+# f32 output on the same inputs (the same h): |kernel - plain| <= rtol
+# |plain| + atol rms(row). bf16 output: rtol 2^-8, the output's single
+# rounding (at most half a bf16 step); atol 1e-5 covers the last bits of
+# the f32 statistics (the row sum in another order; rsqrtf). f32 output:
+# rtol 1e-6, atol 1e-5, the statistics alone. h must be bit-equal.
+NORM_TOL = {"bf16": (2.0 ** -8, 1e-5), "f32": (1e-6, 1e-5)}
+NORM_CASES = (
+    # name, rows, dtype, residual
+    ("residual_bf16", LLAMA_ROWS, "bf16", True),
+    ("noresidual_bf16", LLAMA_ROWS, "bf16", False),
+    ("residual_bf16_rows8191", LLAMA_ROWS - 1, "bf16", True),
+    ("noresidual_bf16_rows8191", LLAMA_ROWS - 1, "bf16", False),
+    ("residual_f32", LLAMA_ROWS, "f32", True),
+    ("noresidual_f32", LLAMA_ROWS, "f32", False),
+)
+# Fused MLP, per element, against the plain computation in f32 on the same
+# compute-dtype inputs with the kernels' rounding points (g, u, act(g) and
+# act(g) * u rounded to the compute dtype): the pair's output y within rtol
+# 2^-8 (its rounding) + atol 1e-2 rms(row) (an element of the intermediate
+# next to a rounding boundary may round the other way after f32 sums in
+# another order); the intermediate a within rtol 2^-5 + the same atol (g
+# or u rounded the other way moves it by one bf16 step of g or u, up to
+# 2^-7 of them, which the activation's slope |d ln act / d ln g| can
+# double and more on its negative side, plus the two later roundings);
+# the down
+# kernel alone, on the gate|up kernel's own a, within rtol 2^-8 + atol
+# 1e-3 rms(row) (summation order). f32: rtol 1e-5 + atol 1e-5 rms(row) for
+# all three (summation order).
+MLP_TOL = {"bf16": {"y": (2.0 ** -8, 1e-2), "a": (2.0 ** -5, 1e-2),
+                    "down": (2.0 ** -8, 1e-3)},
+           "f32": {"y": (1e-5, 1e-5), "a": (1e-5, 1e-5),
+                   "down": (1e-5, 1e-5)}}
+MLP_CASES = (
+    # name, rows, D, F, dtype, activation
+    ("silu_bf16", LLAMA_ROWS, LLAMA_D, LLAMA_F, "bf16", "silu"),
+    ("gelu_tanh_bf16", 1024, LLAMA_D, LLAMA_F, "bf16", "gelu_tanh"),
+    ("gelu_bf16", 1024, LLAMA_D, LLAMA_F, "bf16", "gelu"),
+    ("silu_bf16_rows1000", 1000, LLAMA_D, LLAMA_F, "bf16", "silu"),
+    ("silu_bf16_rows8", 8, LLAMA_D, LLAMA_F, "bf16", "silu"),
+    ("silu_f32", 256, 512, 1352, "f32", "silu"),
+)
+
+
+def _dtype(name):
+    import torch
+
+    return torch.bfloat16 if name == "bf16" else torch.float32
+
+
+def check_norm_kernels(device):
+    """NORM_CASES through the public `fused_rmsnorm` (launch counted),
+    then the main shapes (rows 8192, D 2048, bf16) timed beside the
+    bound, the plain version and F.rms_norm (which the port never
+    calls). Returns (rows by kernel name, details by case)."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    rng = np.random.default_rng(20)
+    details, rows_out = {}, {}
+    max_err = {"fused_norm": 0.0, "fused_norm_noresidual": 0.0}
+    for name, rows, dtype, residual in NORM_CASES:
+        tdt = _dtype(dtype)
+        x = torch.tensor(rng.standard_normal((rows, LLAMA_D),
+                                             dtype=np.float32),
+                         dtype=tdt, device=device)
+        r = torch.tensor(rng.standard_normal((rows, LLAMA_D),
+                                             dtype=np.float32),
+                         dtype=tdt, device=device) if residual else None
+        scale = torch.tensor(1.0 + 0.1 * rng.standard_normal(LLAMA_D),
+                             dtype=torch.float32, device=device)
+        kernel = "fused_norm" if residual else "fused_norm_noresidual"
+        before = tfn.launches[kernel]
+        normed, h = tfn.fused_rmsnorm(x, scale, residual=r, eps=1e-5)
+        torch.cuda.synchronize()
+        if tfn.launches[kernel] != before + 1:
+            raise AssertionError("fused_rmsnorm did not launch " + kernel)
+        plain, plain_h = tfn.rmsnorm_residual_reference(
+            x, scale, residual=r, eps=1e-5, out_dtype=torch.float32)
+        if normed.dtype != tdt or not torch.equal(h, plain_h):
+            raise AssertionError("fused norm {}: h differs from x + r or "
+                                 "normed is {}".format(name, normed.dtype))
+        rtol, atol = NORM_TOL[dtype]
+        row = compare(normed, plain, rtol, atol)
+        details[name] = row
+        log("fused norm {} (rows {}, D {}): of the bound (rtol {} + atol {} "
+            "x row rms) {:.3f}; max abs err {:.3e}; h bit-equal".format(
+                name, rows, LLAMA_D, rtol, atol, row["tol_ratio"],
+                row["max_abs_err"]))
+        if not torch.isfinite(normed).all() or not row["tol_ratio"] <= 1.0:
+            raise AssertionError("fused norm {}: error {:.3e} of the bound "
+                                 "at {}".format(name, row["tol_ratio"],
+                                                row["worst_at"]))
+        if dtype == "bf16":
+            max_err[kernel] = max(max_err[kernel], row["max_abs_err"])
+        if rows == LLAMA_ROWS and dtype == "bf16":
+            xs, rs = x, r
+
+            def library(xs=xs, rs=rs, scale=scale):
+                h = xs if rs is None else xs + rs
+                return F.rms_norm(h, (LLAMA_D,), scale, 1e-5), h
+
+            cost = tfn.fused_norm_cost((rows, LLAMA_D), tdt,
+                                       with_residual=residual)
+            row = rows_out[kernel] = {
+                "ms": timed_ms(lambda: tfn._launch(xs, rs, scale, 1e-5,
+                                                   tdt)),
+                "plain_ms": timed_ms(lambda: tfn.rmsnorm_residual_reference(
+                    xs, scale, rs, 1e-5)),
+                "library_ms": timed_ms(library),
+                "bytes": cost["bytes_moved"]}
+            row["bound_ms"], row["bound_by"] = bound_of(cost)
+            log("kernel {} (rows {}, D {}, bf16): {:.4f} ms (bound {:.4f} ms "
+                "by {}; {:.0f} GB/s), plain {:.4f} ms, library (F.rms_norm"
+                "{}) {:.4f} ms".format(
+                    kernel, rows, LLAMA_D, row["ms"], row["bound_ms"],
+                    row["bound_by"], cost["bytes_moved"] / row["ms"] / 1e6,
+                    row["plain_ms"], " of x + r" if residual else "",
+                    row["library_ms"]))
+        del x, r, normed, h, plain, plain_h
+    for kernel in max_err:
+        rows_out[kernel]["max_abs_err"] = max_err[kernel]
+    details["timing"] = rows_out
+    torch.cuda.empty_cache()
+    return rows_out, details
+
+
+def check_mlp_kernels(device):
+    """MLP_CASES through the public `fused_swiglu` (both launches
+    counted) and each kernel alone, element by element; then the main
+    shape (rows 8192, D 2048, F 5632, bf16, silu) timed beside the
+    bounds and the plain version (three F.linear, the library yardstick
+    as well: the same calls). Returns (rows by kernel, details)."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+
+    rng = np.random.default_rng(21)
+    details = {}
+    max_err = {"fused_mlp_gate_up": 0.0, "fused_mlp_down": 0.0}
+    rows_out = {}
+    for name, rows, d, f, dtype, activation in MLP_CASES:
+        tdt = _dtype(dtype)
+
+        def t(*shape, scale=1.0):
+            return torch.tensor(rng.standard_normal(shape, dtype=np.float32)
+                                * scale, dtype=tdt, device=device)
+
+        x = t(rows, d)
+        wg, wu = t(f, d, scale=d ** -0.5), t(f, d, scale=d ** -0.5)
+        wd = t(d, f, scale=f ** -0.5)
+        before = dict(tfm.launches)
+        y = tfm.fused_swiglu(x, wg, wu, wd, activation=activation)
+        a = tfm.launch_gate_up(x, wg, wu, activation)
+        y_down = tfm.launch_down(a, wd)
+        torch.cuda.synchronize()
+        if (tfm.launches["fused_mlp_gate_up"] != before["fused_mlp_gate_up"]
+                + 2 or tfm.launches["fused_mlp_down"]
+                != before["fused_mlp_down"] + 2):
+            raise AssertionError("fused_swiglu did not launch both kernels")
+        want_a, want_y = tfm.swiglu_rounded_reference(x, wg, wu, wd,
+                                                      activation)
+        want_down = a.float() @ wd.float().T
+        tol = MLP_TOL[dtype]
+        row = {"y": compare(y, want_y, *tol["y"]),
+               "a": compare(a, want_a, *tol["a"]),
+               "down": compare(y_down, want_down, *tol["down"])}
+        details[name] = row
+        log("fused mlp {} (rows {}, D {}, F {}): of the bound y {:.3f} "
+            "(rtol {} + atol {} x row rms), a {:.3f} ({} + {}), down alone "
+            "{:.3f} ({} + {}); worst err over its row's rms y {:.2e} a "
+            "{:.2e}".format(
+                name, rows, d, f, row["y"]["tol_ratio"], *tol["y"],
+                row["a"]["tol_ratio"], *tol["a"], row["down"]["tol_ratio"],
+                *tol["down"], row["y"]["row_normalized"],
+                row["a"]["row_normalized"]))
+        for key in ("y", "a", "down"):
+            if not row[key]["tol_ratio"] <= 1.0:
+                raise AssertionError("fused mlp {} {}: error {:.3e} of the "
+                                     "bound at {}".format(
+                                         name, key, row[key]["tol_ratio"],
+                                         row[key]["worst_at"]))
+        if not torch.isfinite(y).all():
+            raise AssertionError("fused mlp {}: non-finite output".format(
+                name))
+        if dtype == "bf16":
+            max_err["fused_mlp_gate_up"] = max(max_err["fused_mlp_gate_up"],
+                                               row["a"]["max_abs_err"])
+            max_err["fused_mlp_down"] = max(max_err["fused_mlp_down"],
+                                            row["down"]["max_abs_err"])
+        del want_a, want_y, want_down
+        if name == "silu_bf16":
+            act = tfm._ACTIVATIONS[activation]
+            cost = tfm.fused_mlp_cost((rows, d), f, tdt)
+            timing = {
+                "gate_up_ms": timed_ms(lambda: tfm.launch_gate_up(
+                    x, wg, wu, activation)),
+                "down_ms": timed_ms(lambda: tfm.launch_down(a, wd)),
+                "pair_ms": timed_ms(lambda: tfm.launch_down(
+                    tfm.launch_gate_up(x, wg, wu, activation), wd)),
+                "plain_gate_up_ms": timed_ms(
+                    lambda: act(F.linear(x, wg)) * F.linear(x, wu)),
+                "plain_down_ms": timed_ms(lambda: F.linear(a, wd)),
+                "plain_pair_ms": timed_ms(lambda: tfm.swiglu_reference(
+                    x, wg, wu, wd, activation)),
+            }
+            for part, key in (("gate_up", "gate_up_ms"),
+                              ("down", "down_ms"), ("total", "pair_ms")):
+                timing[part + "_bound_ms"], timing[part + "_bound_by"] = \
+                    bound_of(cost[part])
+                timing[part + "_tflops"] = (cost[part]["flops"]
+                                            / timing[key] / 1e9)
+            timing["intermediate_bytes"] = cost["intermediate_bytes"]
+            details["timing"] = timing
+            log("kernels fused_mlp (rows {}, D {}, F {}, bf16, silu): "
+                "gate|up {:.4f} ms (bound {:.4f} ms; {:.0f} TFLOP/s), down "
+                "{:.4f} ms (bound {:.4f} ms; {:.0f} TFLOP/s), pair {:.4f} ms "
+                "(bound {:.4f} ms); plain = library (the same F.linear "
+                "calls): gate|up part {:.4f} ms, down {:.4f} ms, whole "
+                "{:.4f} ms".format(
+                    rows, d, f, timing["gate_up_ms"],
+                    timing["gate_up_bound_ms"], timing["gate_up_tflops"],
+                    timing["down_ms"], timing["down_bound_ms"],
+                    timing["down_tflops"], timing["pair_ms"],
+                    timing["total_bound_ms"], timing["plain_gate_up_ms"],
+                    timing["plain_down_ms"], timing["plain_pair_ms"]))
+            for kernel, part in (("fused_mlp_gate_up", "gate_up"),
+                                 ("fused_mlp_down", "down")):
+                rows_out[kernel] = {
+                    "ms": timing[part + "_ms"],
+                    "bound_ms": timing[part + "_bound_ms"],
+                    "bound_by": timing[part + "_bound_by"],
+                    "plain_ms": timing["plain_" + part + "_ms"],
+                    "library_ms": timing["plain_" + part + "_ms"]}
+        del x, wg, wu, wd, y, a, y_down
+        torch.cuda.empty_cache()
+    for kernel in rows_out:
+        rows_out[kernel]["max_abs_err"] = max_err[kernel]
+    return rows_out, details
+
+
+# -- phase 7: TinyLlama-1.1B training -------------------------------------
+
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_EPOCHS, LLAMA_STEPS = 4, 2048, 12, 20
+# AdamW's peak learning rate (warmup over the first tenth of the steps,
+# then cosine decay to 0): at every peak tried from 5e-5 to 2.4e-3, 120
+# steps end on the plateau of a model that predicts the tokens of the
+# sequence's two permutation cycles without their order (about ln 33
+# nats); at 5e-5 the model leaves it after about 120 steps and learns
+# the chains, which 240 steps complete (PERF.md, Findings).
+LLAMA_LR = 5e-5
+
+
+def plain_kernels_swapped():
+    """A context in which the Llama model's attention, fused norm and
+    fused MLP run their plain versions (autograd through them)."""
+    import contextlib
+
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    def attention(q, k, v, causal=True, mask=None, impl="auto", **kw):
+        return tatt.mha_reference(q, k, v, causal=causal, mask=mask, **kw)
+
+    def norm(x, scale, residual=None, eps=1e-6, out_dtype=None,
+             impl="auto"):
+        return tfn.rmsnorm_residual_reference(x, scale, residual, eps,
+                                              out_dtype)
+
+    def mlp(x, wg, wu, wd, activation="silu", compute_dtype=None,
+            impl="auto"):
+        return tfm.swiglu_reference(x, wg, wu, wd, activation,
+                                    compute_dtype)
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = (tatt.attention, tfn.fused_rmsnorm, tfm.fused_swiglu)
+        tatt.attention, tfn.fused_rmsnorm, tfm.fused_swiglu = \
+            attention, norm, mlp
+        try:
+            yield
+        finally:
+            tatt.attention, tfn.fused_rmsnorm, tfm.fused_swiglu = saved
+
+    return swapped()
+
+
+def reset_all_launches():
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+    from cloud_tpu_torch.ops import fused_norm as tfn
+    from cloud_tpu_torch.ops import paged_attention as _  # noqa: F401
+
+    for mod in (tatt, tfm, tfn,
+                sys.modules["cloud_tpu_torch.ops.paged_attention"]):
+        mod.reset_launches()
+
+
+def all_launches():
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    out = {}
+    for mod in (tatt, tfm, tfn,
+                sys.modules["cloud_tpu_torch.ops.paged_attention"]):
+        out.update(mod.launches)
+    return out
+
+
+def expected_llama_launches(layers, steps):
+    return {"flash_attention_fwd": layers * steps,
+            "flash_attention_dq": layers * steps,
+            "flash_attention_dkdv": layers * steps,
+            "fused_mlp_gate_up": layers * steps,
+            "fused_mlp_down": layers * steps,
+            "fused_norm": layers * steps,
+            "fused_norm_noresidual": (layers + 1) * steps,
+            "paged_attention": 0, "paged_attention_int8": 0}
+
+
+def llama_one_step_check(model, x, y):
+    """Loss and every parameter's gradient norm of one step from the
+    model's current weights, on the kernels and with attention, norm and
+    MLP all swapped for their plain versions. Parameters whose gradient
+    is exactly zero on the plain run are excluded and named."""
+    import torch
+    import torch.nn.functional as F
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        logits = model(x)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               y.reshape(-1))
+        loss.backward()
+        norms = {n: p.grad.float().norm().item()
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), norms
+
+    reset_all_launches()
+    loss_k, norms_k = step()
+    launched = all_launches()
+    want = expected_llama_launches(model.num_layers, 1)
+    if launched != want:
+        raise AssertionError("one-step check launched {}; expected {}"
+                             .format(launched, want))
+    # The plain attention keeps f32 logits [B, H, S, S] and the softmax
+    # weights for its backward in every layer.
+    seq = x.shape[1]
+    reckoned = (2 * x.shape[0] * model.num_heads * seq * seq * 4
+                * model.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with plain_kernels_swapped():
+        loss_p, norms_p = step()
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(all_launches()[k] != want[k] for k in want):
+        raise AssertionError("the plain run launched a kernel")
+    excluded = sorted(n for n, v in norms_p.items() if v == 0.0)
+    worst, worst_name = 0.0, None
+    for name, value in norms_p.items():
+        if name in excluded:
+            continue
+        rel = abs(norms_k[name] - value) / value
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log("llama one-step check (batch {} x {}): loss kernels {:.6f} plain "
+        "{:.6f} (rel {:.2e}, tol {}); worst grad-norm rel diff {:.2e} at {} "
+        "(tol {}); excluded (zero gradient) {}; the plain attention's saved "
+        "f32 logits and weights reckoned {:.1f} GB, peak above the model "
+        "{:.1f} GB".format(x.shape[0], seq, loss_k, loss_p, loss_rel,
+                           STEP_LOSS_TOL, worst, worst_name, STEP_GRAD_TOL,
+                           excluded, reckoned / 1e9, peak / 1e9))
+    if not (np.isfinite(loss_k) and loss_rel <= STEP_LOSS_TOL
+            and worst <= STEP_GRAD_TOL):
+        raise AssertionError("one Llama training step disagrees with the "
+                             "plain versions")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": loss_rel, "worst_grad_norm_rel_diff": worst,
+            "worst_grad_norm_param": worst_name, "excluded": excluded,
+            "plain_attention_bytes_reckoned": reckoned,
+            "plain_run_peak_bytes": peak}
+
+
+def train_llama(device):
+    """Phase 7: TinyLlama-1.1B through `Trainer.fit`; returns (launches
+    in fit, summary dict)."""
+    import torch
+    from cloud_tpu_torch.models import TINYLLAMA_1_1B, LlamaLM
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.training import Trainer, make_optimizer
+    from cloud_tpu_torch.training.schedules import warmup_cosine
+
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    model = LlamaLM(compute_dtype=torch.bfloat16, device=device, seed=0,
+                    **TINYLLAMA_1_1B)
+    n_total = sum(p.numel() for p in model.parameters())
+    log("llama: TinyLlama-1.1B ({:,} parameters) built in {:.1f} s".format(
+        n_total, time.monotonic() - t0))
+    n_train = LLAMA_BATCH * LLAMA_STEPS
+    x, y = training_data(6, n_train + 2 * LLAMA_BATCH, model.vocab_size,
+                         LLAMA_SEQ)
+    x_val, y_val = x[n_train:], y[n_train:]
+    x, y = x[:n_train], y[:n_train]
+    entropy = next_token_entropy(x, y)
+    check = llama_one_step_check(model,
+                                 torch.as_tensor(x[:1], device=device),
+                                 torch.as_tensor(y[:1], device=device))
+    torch.cuda.empty_cache()
+
+    total = LLAMA_EPOCHS * LLAMA_STEPS
+    trainer = Trainer(model, optimizer=make_optimizer(
+        "adamw", warmup_cosine(LLAMA_LR, total, total // 10)),
+        metrics=("accuracy",), seed=0)
+    reset_all_launches()
+    t0 = time.monotonic()
+    history = trainer.fit(x, y, batch_size=LLAMA_BATCH, epochs=LLAMA_EPOCHS,
+                          verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    launches = all_launches()
+    steps = trainer.state.step
+    want = expected_llama_launches(model.num_layers, steps)
+    if steps != total or launches != want:
+        raise AssertionError("llama fit launched {} over {} steps; expected "
+                             "{}".format(launches, steps, want))
+    losses = history["loss"]
+    log("llama fit: {} steps in {:.2f} s, history {}; entropy of the next "
+        "token given the current one {:.4f} nats, gate {} x that; peak "
+        "memory {:.1f} GB".format(steps, fit_s, json.dumps(history),
+                                  entropy, LOSS_FALL,
+                                  torch.cuda.max_memory_allocated() / 1e9))
+    if not (all(np.isfinite(losses))
+            and losses[-1] < LOSS_FALL * entropy < losses[0]):
+        raise AssertionError(
+            "llama: the last epoch's loss {} is not below {} x {:.4f} (the "
+            "entropy of the next token given the current one)".format(
+                losses[-1], LOSS_FALL, entropy))
+
+    batches = [(x[i:i + LLAMA_BATCH], y[i:i + LLAMA_BATCH])
+               for i in range(0, n_train, LLAMA_BATCH)]
+    step_s, times = time_steps(trainer, batches)
+    prof = profile_steps(trainer, batches,
+                         ("flash_", "rmsnorm_kernel", "gemm_bf16"))
+    cost = tatt.flash_attention_cost(LLAMA_BATCH, LLAMA_SEQ, model.num_heads,
+                                     model.num_kv_heads, model.head_dim,
+                                     causal=True)
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    n_params = matmul_params(model)
+    step_flops = (6.0 * n_params * tokens
+                  + 3 * cost["forward"]["flops"] * model.num_layers)
+    mfu = step_flops / step_s / PEAK_FLOPS["bf16"]
+    val, pred_loss, val2 = evaluate_and_predict(trainer, x_val, y_val,
+                                                LLAMA_BATCH, LLAMA_SEQ,
+                                                model.vocab_size)
     summary = {
-        "model": "GPT-2 small bf16", "batch": TRAIN_BATCH,
-        "seq": TRAIN_SEQ, "steps": steps, "history": history,
-        "peak_lr": TRAIN_LR, "next_token_entropy_given_current": entropy,
-        "fit_s": fit_s, "launches": launches, "one_step_check": check,
+        "model": "TinyLlama-1.1B bf16", "parameters": n_total,
+        "batch": LLAMA_BATCH, "seq": LLAMA_SEQ, "steps": steps,
+        "history": history, "peak_lr": LLAMA_LR,
+        "next_token_entropy_given_current": entropy, "fit_s": fit_s,
+        "launches": launches, "one_step_check": check,
         "step_p50_s": step_s, "step_times_s": times,
         "tokens_per_s": tokens / step_s, "matmul_params": n_params,
         "step_flops": step_flops, "mfu": mfu,
-        "device_busy_share": busy,
-        "flash_share_of_device": (flash_us / total_us if total_us
-                                  else None),
-        "device_ms_per_step": total_us / 3e3,
-        "top_kernels": top_kernels,
+        "device_busy_share": prof["device_busy_share"],
+        "port_kernels_share_of_device": prof["matched_share_of_device"],
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "top_kernels": prof["top_kernels"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "evaluate": val, "predict_loss_2_seqs": pred_loss,
         "evaluate_loss_2_seqs": val2["loss"],
     }
-    log("train: step p50 {:.2f} ms, {:.0f} tokens/s, MFU {:.4f}, device "
-        "busy {}, flash kernels {} of device time; evaluate {}".format(
-            step_s * 1e3, tokens / step_s, mfu, busy,
-            summary["flash_share_of_device"], json.dumps(val)))
-    for row in top_kernels:
-        log("train top kernel {:.3f} ms/step ({:.1%}): {}".format(
-            row["ms_per_step"], row["share"] or 0.0, row["name"]))
+    log("llama train: step p50 {:.2f} ms, {:.0f} tokens/s, MFU {:.4f}, "
+        "device busy {}, device {:.1f} ms/step, the port's kernels {} of "
+        "device time; evaluate {}".format(
+            step_s * 1e3, tokens / step_s, mfu, prof["device_busy_share"],
+            prof["device_ms_per_step"], prof["matched_share_of_device"],
+            json.dumps(val)))
+    log_top_kernels("llama", prof["top_kernels"])
+    del trainer, model
+    torch.cuda.empty_cache()
     return launches, summary
 
 
@@ -1051,10 +1601,18 @@ def main():
     log("device: {} x{}".format(torch.cuda.get_device_name(0),
                                 torch.cuda.device_count()))
     log("nvidia-smi: {}".format(smi))
+    # f32 products in full f32 (TF32 off) for the whole run: the plain
+    # versions the kernels are held against, and the f32 MLP backward that
+    # the training phases time, as the JAX code computes it.
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     rows = check_kernels(device)
     flash_err, flash_details = check_flash_kernels(device)
     flash_rows = time_flash_kernels(device)
+    flash_rows_llama = time_flash_kernels(device, (LLAMA_BATCH, LLAMA_SEQ,
+                                                   32, 4, 64))
+    norm_rows, norm_details = check_norm_kernels(device)
+    mlp_rows, mlp_details = check_mlp_kernels(device)
 
     model = TransformerLM(compute_dtype=torch.bfloat16, device=device,
                           seed=0, **GPT2_SMALL)
@@ -1067,33 +1625,46 @@ def main():
     del model, ref_model
     torch.cuda.empty_cache()
     flash_launches, training = train(device)
+    llama_launches, llama_training = train_llama(device)
 
-    source = "cloud_tpu_torch/ops/csrc/paged_attention.cu"
-    kernels = []
-    for name, replaces, launches in (
-            ("paged_attention", "cloud_tpu/ops/paged_attention.py:164",
-             launches_fp),
-            ("paged_attention_int8",
-             "cloud_tpu/ops/paged_attention.py:207", launches_q)):
-        row = rows[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    for name, replaces in (
-            ("flash_attention_fwd", "cloud_tpu/ops/attention.py:179"),
-            ("flash_attention_dq", "cloud_tpu/ops/attention.py:345"),
-            ("flash_attention_dkdv", "cloud_tpu/ops/attention.py:383")):
-        row = flash_rows[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "cloud_tpu_torch/ops/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": flash_launches[name],
-            "max_abs_err": flash_err[name], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # One row per kernel and path that launches it: the launches counted
+    # from 0 around that path's run, the times and errors at its shape.
+    # The flash kernels run on both training paths, so they have a row
+    # for each.
+    entries = [
+        ("paged_attention", "paged_attention.cu", "paged_attention.py:164",
+         "serve_fp", launches_fp, rows["paged_attention"]),
+        ("paged_attention_int8", "paged_attention.cu",
+         "paged_attention.py:207", "serve_int8", launches_q,
+         rows["paged_attention_int8"])]
+    for path, times, launched in (
+            ("gpt2_train", flash_rows, flash_launches),
+            ("tinyllama_train", flash_rows_llama, llama_launches)):
+        for name, line in (("flash_attention_fwd", "179"),
+                           ("flash_attention_dq", "345"),
+                           ("flash_attention_dkdv", "383")):
+            entries.append((name, "flash_attention.cu", "attention.py:" + line,
+                            path, launched[name],
+                            dict(times[name],
+                                 max_abs_err=flash_err[path][name])))
+    for name, source, replaces, table in (
+            ("fused_norm", "fused_norm.cu", "fused_norm.py:70", norm_rows),
+            ("fused_norm_noresidual", "fused_norm.cu", "fused_norm.py:70",
+             norm_rows),
+            ("fused_mlp_gate_up", "fused_mlp.cu", "fused_mlp.py:96",
+             mlp_rows),
+            ("fused_mlp_down", "fused_mlp.cu", "fused_mlp.py:96", mlp_rows)):
+        entries.append((name, source, replaces, "tinyllama_train",
+                        llama_launches[name], table[name]))
+    kernels = [{
+        "name": name, "route": "cuda",
+        "source": "cloud_tpu_torch/ops/csrc/" + source,
+        "replaces": "cloud_tpu/ops/" + replaces, "path": path,
+        "launches": launches, "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]}
+        for name, source, replaces, path, launches, row in entries]
     device_info = {"platform": "gpu",
                    "kind": torch.cuda.get_device_name(0),
                    "count": torch.cuda.device_count()}
@@ -1103,7 +1674,10 @@ def main():
                    "kernels": kernels, "serve": [serve_fp, serve_q],
                    "tick_breakdown": breakdown,
                    "flash_checks": flash_details,
-                   "flash_timing": flash_rows, "training": training,
+                   "flash_timing": flash_rows,
+                   "flash_timing_tinyllama": flash_rows_llama,
+                   "norm_checks": norm_details, "mlp_checks": mlp_details,
+                   "training": training, "llama_training": llama_training,
                    "build_logs": _build.build_logs}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

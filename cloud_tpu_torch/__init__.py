@@ -7,19 +7,24 @@ standard library only; its kernels are CUDA C++ sources under
 CUDA card unless the caller passes `device="cpu"`, where each kernel's
 plain PyTorch version runs instead.
 
-Ported so far: paged decode attention (fp and int8 pages) and flash
-attention (forward and backward), `TransformerLM` (training forward and
-decode), `generate()`, the plain serving path (`Scheduler` ->
-`DecodeEngine`) and `Trainer` (fit / evaluate / predict over arrays).
+Ported so far: paged decode attention (fp and int8 pages), flash
+attention (forward and backward), the fused residual-add + RMSNorm and
+the fused SwiGLU MLP; `TransformerLM` (training forward and decode),
+`generate()`, `LlamaLM` (training forward), the plain serving path
+(`Scheduler` -> `DecodeEngine`) and `Trainer` (fit / evaluate / predict
+over arrays).
 """
 
 from cloud_tpu_torch import models, ops, serving, training
-from cloud_tpu_torch.models import (TransformerLM, generate, params_from_flax,
+from cloud_tpu_torch.models import (LlamaLM, TransformerLM, generate,
+                                    llama_params_from_flax,
+                                    llama_params_to_flax, params_from_flax,
                                     params_to_flax)
 from cloud_tpu_torch.serving import (DecodeEngine, Scheduler, ServeRequest,
                                      ServeResult)
 from cloud_tpu_torch.training import Trainer
 
-__all__ = ["DecodeEngine", "Scheduler", "ServeRequest", "ServeResult",
-           "Trainer", "TransformerLM", "generate", "models", "ops",
+__all__ = ["DecodeEngine", "LlamaLM", "Scheduler", "ServeRequest",
+           "ServeResult", "Trainer", "TransformerLM", "generate",
+           "llama_params_from_flax", "llama_params_to_flax", "models", "ops",
            "params_from_flax", "params_to_flax", "serving", "training"]

@@ -1,12 +1,18 @@
 """Models of the PyTorch port: `TransformerLM` (training forward and
-decode), `generate()`, the decode-cache helpers and the JAX parameter
-converters."""
+decode), `generate()`, `LlamaLM` (training forward), the decode-cache
+helpers and the JAX parameter converters."""
 
 from cloud_tpu_torch.models import decoding
-from cloud_tpu_torch.models.convert import params_from_flax, params_to_flax
+from cloud_tpu_torch.models.convert import (llama_params_from_flax,
+                                            llama_params_to_flax,
+                                            params_from_flax, params_to_flax)
+from cloud_tpu_torch.models.llama import (TINYLLAMA_1_1B, LlamaLM,
+                                          RopeScaling, apply_rope)
 from cloud_tpu_torch.models.transformer import (CausalSelfAttention,
                                                 TransformerBlock,
                                                 TransformerLM, generate)
 
-__all__ = ["CausalSelfAttention", "TransformerBlock", "TransformerLM",
-           "decoding", "generate", "params_from_flax", "params_to_flax"]
+__all__ = ["CausalSelfAttention", "LlamaLM", "RopeScaling", "TINYLLAMA_1_1B",
+           "TransformerBlock", "TransformerLM", "apply_rope", "decoding",
+           "generate", "llama_params_from_flax", "llama_params_to_flax",
+           "params_from_flax", "params_to_flax"]

@@ -1,6 +1,7 @@
 """Carries `cloud_tpu` `TransformerLM` parameters into the port's
 `TransformerLM` state dict (`params_from_flax`) and back
-(`params_to_flax`, the exact inverse).
+(`params_to_flax`, the exact inverse); `llama_params_from_flax` and
+`llama_params_to_flax` do the same for `LlamaLM` (mapping below them).
 
     embed/embedding [V, d]              -> embed.weight
     pos_embed/embedding [L, d]          -> pos_embed.weight
@@ -114,4 +115,100 @@ def _contiguous(tree):
     return np.ascontiguousarray(tree)
 
 
-__all__ = ["params_from_flax", "params_to_flax"]
+# -- LlamaLM ---------------------------------------------------------------
+#
+#   embed/embedding [V, d]                    -> embed.weight
+#   block_i/{norm_attn,norm_mlp,norm_attn_post,norm_mlp_post}/scale
+#                                             -> blocks.i.<norm>.weight
+#   block_i/attention/{query,key,value}/kernel [d, H(_kv), hd]
+#                                             -> ....weight [H(_kv)*hd, d]
+#   block_i/attention/{query,key,value}/bias [H(_kv), hd] -> ....bias
+#   block_i/attention/{q_norm,k_norm}/scale   -> ....weight [hd]
+#   block_i/attention/out/kernel [H, hd, d]   -> ....out.weight [d, H*hd]
+#   block_i/mlp/{gate,up,down}/kernel [in, out] -> ....weight [out, in]
+#   norm_final/scale                          -> norm_final.weight
+#   lm_head/kernel [d, V]                     -> lm_head.weight [V, d]
+
+_LLAMA_NORMS = ("norm_attn", "norm_mlp", "norm_attn_post", "norm_mlp_post",
+                "q_norm", "k_norm", "norm_final")
+
+
+def llama_params_from_flax(params):
+    """params: the JAX `LlamaLM` "params" tree (optionally wrapped as
+    {"params": ...}) -> a state dict of float32 CPU tensors for the
+    port's `LlamaLM`. Raises on any leaf it does not map."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    state = {}
+    for path, arr in _flatten(params):
+        name = "/".join(path)
+        match = re.fullmatch(r"block_(\d+)", path[0])
+        module = (("blocks.%s." % match.group(1)) if match else "") \
+            + ".".join(path[1 if match else 0:-1])
+        owner, leaf = path[-2] if len(path) > 1 else "", path[-1]
+        if path == ("embed", "embedding"):
+            state["embed.weight"] = arr
+        elif owner in _LLAMA_NORMS and leaf == "scale":
+            state[module + ".weight"] = arr
+        elif owner in ("query", "key", "value") and leaf == "kernel":
+            state[module + ".weight"] = arr.reshape(arr.shape[0], -1).T
+        elif owner in ("query", "key", "value") and leaf == "bias":
+            state[module + ".bias"] = arr.reshape(-1)
+        elif owner == "out" and leaf == "kernel":
+            state[module + ".weight"] = arr.reshape(-1, arr.shape[-1]).T
+        elif owner in ("gate", "up", "down", "lm_head") and leaf == "kernel":
+            state[module + ".weight"] = arr.T
+        else:
+            raise ValueError("unmapped parameter {}".format(name))
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in state.items()}
+
+
+def llama_params_to_flax(state_dict, num_heads, num_kv_heads=None):
+    """The inverse of `llama_params_from_flax`: a port `LlamaLM` state
+    dict (tensors on any device) -> the JAX model's nested "params" dict
+    of float32 numpy arrays. num_heads / num_kv_heads (default
+    num_heads) restore the [d, H(_kv), hd] and [H, hd, d] attention
+    kernels. Raises on any key it does not map."""
+    num_kv_heads = num_kv_heads or num_heads
+    heads = {"query": num_heads, "key": num_kv_heads,
+             "value": num_kv_heads}
+    params = {}
+
+    def put(path, value):
+        node = params
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for name, tensor in state_dict.items():
+        arr = tensor.detach().to("cpu", torch.float32).numpy().copy()
+        parts = name.split(".")
+        if parts == ["embed", "weight"]:
+            put(("embed", "embedding"), arr)
+            continue
+        if parts[0] == "blocks":
+            path = ("block_" + parts[1],) + tuple(parts[2:-1])
+        else:
+            path = tuple(parts[:-1])
+        leaf = parts[-1]
+        module = path[-1] if path else ""
+        if module in _LLAMA_NORMS and leaf == "weight":
+            put(path + ("scale",), arr)
+        elif module in heads and leaf == "weight":
+            put(path + ("kernel",),
+                arr.T.reshape(arr.shape[1], heads[module], -1))
+        elif module in heads and leaf == "bias":
+            put(path + ("bias",), arr.reshape(heads[module], -1))
+        elif module == "out" and leaf == "weight":
+            put(path + ("kernel",), arr.T.reshape(num_heads, -1,
+                                                  arr.shape[0]))
+        elif module in ("gate", "up", "down", "lm_head") and leaf == "weight":
+            put(path + ("kernel",), arr.T)
+        else:
+            raise ValueError("unmapped parameter {}".format(name))
+    return {k: _contiguous(v) for k, v in params.items()}
+
+
+__all__ = ["llama_params_from_flax", "llama_params_to_flax",
+           "params_from_flax", "params_to_flax"]

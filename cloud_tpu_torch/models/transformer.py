@@ -267,7 +267,7 @@ class TransformerLM(nn.Module):
         if moe_experts:
             raise NotImplementedError(
                 "the mixture-of-experts MLP (moe_experts > 0) is not "
-                "ported yet (ROADMAP: Modules to port, item 7).")
+                "ported yet (ROADMAP: Modules to port, item 1).")
         device = runtime.resolve_device(device)
         self.vocab_size = vocab_size
         self.num_layers = num_layers

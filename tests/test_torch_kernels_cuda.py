@@ -6,8 +6,9 @@ file imports no JAX, so it runs on a machine with PyTorch alone:
 
 Paged attention tolerance: 2e-2 on bf16 outputs (the kernel and the
 plain version sum in another order and round P and the output to bf16 at
-other points); rows with no allowed key must be exact zeros. The flash
-kernels' tolerances are stated above their tests.
+other points); rows with no allowed key must be exact zeros. The flash,
+fused-norm and fused-MLP kernels' tolerances are stated above their
+tests.
 """
 
 import sys
@@ -209,3 +210,150 @@ def test_flash_wrapper_rejects_what_the_kernels_do_not_take():
         tatt.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="reference"):
         tatt.attention(q, q, q, impl="reference")
+
+
+# -- fused RMSNorm (+ residual) -------------------------------------------
+#
+# Tolerance against `rmsnorm_residual_reference` on the same inputs: h bit
+# for bit (the same add, rounded once); normed per element within 2^-7
+# of |plain| for a bf16 output (the f32 statistics sum in another order
+# and rsqrtf differs from torch.rsqrt in the last bits, which can move a
+# value to the next bf16 step, 2^-8 to 2^-7 of it) or 1e-5 for an f32
+# output, plus 1e-6 absolute.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["same", "other"])
+@pytest.mark.parametrize("rows", [1, 37, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("residual", [False, True],
+                         ids=["noresidual", "residual"])
+def test_fused_norm_kernel_matches_plain_version(residual, dtype, rows, out):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    rng = np.random.default_rng(rows)
+    dev = torch.device("cuda")
+    x = torch.tensor(rng.normal(size=(rows, 264)), dtype=dtype, device=dev)
+    r = torch.tensor(rng.normal(size=(rows, 264)), dtype=dtype, device=dev)
+    scale = torch.tensor(rng.normal(size=264) * 0.1 + 1, dtype=torch.float32,
+                         device=dev)
+    out_dtype = dtype if out == "same" else (
+        torch.float32 if dtype == torch.bfloat16 else torch.bfloat16)
+    name = "fused_norm" if residual else "fused_norm_noresidual"
+    before = tfn.launches[name]
+    normed, h = tfn.fused_rmsnorm(x, scale, residual=r if residual else None,
+                                  eps=1e-5, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert tfn.launches[name] == before + 1
+    want, want_h = tfn.rmsnorm_residual_reference(
+        x, scale, residual=r if residual else None, eps=1e-5,
+        out_dtype=out_dtype)
+    assert normed.dtype == out_dtype and torch.equal(h, want_h)
+    rtol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+    np.testing.assert_allclose(normed.float().cpu(), want.float().cpu(),
+                               rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_fused_norm_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    dev = torch.device("cuda")
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    scale = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="reference"):
+        tfn.fused_rmsnorm(x, scale, impl="reference")
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        tfn.fused_rmsnorm(x.half(), scale)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        tfn.fused_rmsnorm(x, scale, residual=x.float())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfn.fused_rmsnorm(torch.zeros((4, 60), device=dev),
+                          torch.ones(60, device=dev))
+    with pytest.raises(ValueError, match="device"):
+        tfn.fused_rmsnorm(x, scale.cpu())
+
+
+# -- fused SwiGLU (gate|up, then down) ------------------------------------
+#
+# Tolerance, per element, against the plain computation in f32 on the same
+# compute-dtype inputs with the kernels' rounding points (g, u, act(g) and
+# act(g) * u rounded to the compute dtype): |kernel - plain| <= rtol
+# |plain| + atol rms(row). bf16: rtol 2^-8 (the output's rounding), atol
+# 1e-2 (an element of the intermediate next to a rounding boundary may
+# round the other way after f32 sums in another order; one such step moves
+# an output by ~2^-8 / sqrt(d_ff) of its row's rms). f32: rtol 1e-5, atol
+# 1e-5 (summation order).
+
+
+def _close_rows(got, want, rtol, atol):
+    got, want = got.float(), want.float()
+    rms = torch.clamp(want.square().mean(-1, keepdim=True).sqrt(),
+                      min=1e-2 * want.square().mean().sqrt().item())
+    err = (got - want).abs()
+    worst = (err / (rtol * want.abs() + atol * rms)).max().item()
+    assert worst <= 1.0, "error {} of the bound".format(worst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation", ["silu", "gelu_tanh", "gelu"])
+@pytest.mark.parametrize("rows", [1, 8, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_mlp_kernels_match_plain_version(dtype, rows, activation):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+
+    rng = np.random.default_rng(rows)
+    dev = torch.device("cuda")
+    d, f = 136, 328   # not multiples of the tiles: ragged N and K
+    x = torch.tensor(rng.normal(size=(rows, d)), dtype=dtype, device=dev)
+    wg = torch.tensor(rng.normal(size=(f, d)) / np.sqrt(d), dtype=dtype,
+                      device=dev)
+    wu = torch.tensor(rng.normal(size=(f, d)) / np.sqrt(d), dtype=dtype,
+                      device=dev)
+    wd = torch.tensor(rng.normal(size=(d, f)) / np.sqrt(f), dtype=dtype,
+                      device=dev)
+    before = dict(tfm.launches)
+    y = tfm.fused_swiglu(x, wg, wu, wd, activation=activation)
+    a = tfm.launch_gate_up(x, wg, wu, activation)
+    torch.cuda.synchronize()
+    assert tfm.launches["fused_mlp_gate_up"] == \
+        before["fused_mlp_gate_up"] + 2
+    assert tfm.launches["fused_mlp_down"] == before["fused_mlp_down"] + 1
+    want_a, want_y = tfm.swiglu_rounded_reference(x, wg, wu, wd, activation)
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2.0 ** -8,
+                                                              1e-2)
+    assert y.dtype == dtype and y.shape == (rows, d)
+    _close_rows(y, want_y, rtol, atol)
+    # The intermediate: g or u rounded the other way moves it by one bf16
+    # step of g or u (up to 2^-7), which the activation's slope can double
+    # and more on its negative side.
+    _close_rows(a, want_a, 1e-5 if dtype == torch.float32 else 2.0 ** -5,
+                atol)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_wrapper_rejects_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+
+    dev = torch.device("cuda")
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((96, 64), dtype=torch.bfloat16, device=dev)
+    wd = torch.zeros((64, 96), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="reference"):
+        tfm.fused_swiglu(x, w, w, wd, impl="reference")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfm.fused_swiglu(x.half(), w.half(), w.half(), wd.half())
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfm.fused_swiglu(x, w[:90], w[:90], wd[:, :90])
+    with pytest.raises(ValueError, match="device"):
+        tfm.fused_swiglu(x, w.cpu(), w, wd)
