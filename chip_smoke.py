@@ -38,9 +38,11 @@ then:
    them beside the bound, the plain version and F.rms_norm; holds the
    fused SwiGLU kernels (gate|up, down) against the plain computation
    with the same rounding points at rows 8192, 1000 and 8 x D 2048 x
-   d_ff 5632 (silu; gelu_tanh and gelu at rows 1024; f32 at a small
-   shape), and times them beside their bounds and the three F.linear
-   calls of the plain version;
+   d_ff 5632 (silu; gelu_tanh and gelu at rows 1024), at rows 1000 x D
+   520 x d_ff 1352 (no width a multiple of the tiles), rows 128 x d_ff
+   1024 (fewer tiles than SMs) and f32 at a small shape, and times them
+   beside their bounds and the three F.linear calls of the plain
+   version;
 5. serves 16 requests through `Scheduler` on GPT-2 small (random
    weights from a seed), with fp pages; checks that every tick went
    through the kernel, that sampled requests equal solo `generate()`
@@ -1122,6 +1124,11 @@ MLP_CASES = (
     ("gelu_bf16", 1024, LLAMA_D, LLAMA_F, "bf16", "gelu"),
     ("silu_bf16_rows1000", 1000, LLAMA_D, LLAMA_F, "bf16", "silu"),
     ("silu_bf16_rows8", 8, LLAMA_D, LLAMA_F, "bf16", "silu"),
+    # No width a multiple of the bf16 tiles (128 rows, 256 weight rows,
+    # 64 deep): K tails 520 = 8 x 64 + 8 and 1352 = 21 x 64 + 8.
+    ("silu_bf16_ragged", 1000, 520, 1352, "bf16", "silu"),
+    # Fewer tiles than SMs (8 of each kernel).
+    ("silu_bf16_rows128", 128, LLAMA_D, 1024, "bf16", "silu"),
     ("silu_f32", 256, 512, 1352, "f32", "silu"),
 )
 
@@ -1572,6 +1579,7 @@ def train_llama(device):
 
 
 def main():
+    t_start = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -1589,11 +1597,12 @@ def main():
 
     t_build = time.monotonic()
     _build.build(_build.sources())
-    log("built {} in {:.1f} s".format(_build.sources(),
-                                      time.monotonic() - t_build))
+    build_s = time.monotonic() - t_build
+    log("built {} in {:.1f} s".format(_build.sources(), build_s))
     for name, report in _build.build_logs.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "warning" in line.lower()):
                 log("ptxas {}: {}".format(name, line.strip()))
 
     device = torch.device("cuda")
@@ -1668,9 +1677,12 @@ def main():
     device_info = {"platform": "gpu",
                    "kind": torch.cuda.get_device_name(0),
                    "count": torch.cuda.device_count()}
+    run_s = time.monotonic() - t_start
+    log("whole run {:.1f} s, build {:.1f} s of it".format(run_s, build_s))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
     with open(os.path.join(root, "build", "chip_smoke.json"), "w") as f:
         json.dump({"nvidia_smi": smi, "device": device_info,
+                   "run_s": run_s, "build_s": build_s,
                    "kernels": kernels, "serve": [serve_fp, serve_q],
                    "tick_breakdown": breakdown,
                    "flash_checks": flash_details,

@@ -4,9 +4,10 @@ at first use and loads them with ctypes.
 Each source has a plain C interface, so it compiles with `nvcc` alone
 in seconds (no PyTorch headers). The library lands in
 `build/cloud_tpu_torch/` at the repository root, named by a hash of
-its source and flags, so an edited source builds anew and an unchanged
-one is reused. Importing this module needs no `nvcc`: nothing is built
-until a kernel is first launched on a CUDA tensor.
+its source, every header under `csrc/` (`*.cuh`) and the flags, so an
+edited source or header builds anew and an unchanged tree is reused.
+Importing this module needs no `nvcc`: nothing is built until a kernel
+is first launched on a CUDA tensor.
 """
 
 import ctypes
@@ -45,9 +46,18 @@ def sources():
     return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
 
 
+def headers():
+    """Names of the headers under csrc/ (`*.cuh`), which any source may
+    include."""
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 def library_path(name):
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    for f in [name + ".cu"] + headers():
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read() + b"\0")
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, "{}-{}.so".format(
         name, digest.hexdigest()[:16]))
 
@@ -103,5 +113,5 @@ def check(err, what):
         raise RuntimeError("{} failed: cudaError_t {}".format(what, err))
 
 
-__all__ = ["BUILD_DIR", "build", "build_logs", "check", "load",
+__all__ = ["BUILD_DIR", "build", "build_logs", "check", "headers", "load",
            "library_path", "sources"]

@@ -16,12 +16,22 @@ It works by where its tensors lie:
   CUDA tensor to the plain version, and no product of the forward goes
   to cuBLAS.
 
+In bf16 both kernels are one Hopper GEMM: TMA loads 64-deep k tiles
+into a 4-stage shared-memory ring, two consumer warpgroups multiply
+with `wgmma` (m64n256k16) while a producer warpgroup keeps the ring
+full, and one persistent block per SM walks 128 x 256 output tiles
+(gate|up: 128 columns of g and the same 128 of u). The products bound
+the work (0.382 ms for gate|up and 0.191 ms for down at 989 TFLOP/s,
+rows 8192, D 2048, d_ff 5632). In f32 (the tests' oracle) they are FFMA
+kernels.
+
 The backward is plain PyTorch in f32 on both (`_swiglu_bwd`, the JAX
 custom-vjp's math: the products recomputed from the saved x and
 weights, f32 matrix products throughout).
 
-The kernels take compute dtypes f32 or bf16 and widths D, d_ff and D_out
-that are multiples of 8; anything else raises.
+The kernels take compute dtypes f32 or bf16, widths D, d_ff and D_out
+that are multiples of 8, and operands that TMA can address (16-byte
+aligned base, rows a multiple of 16 bytes apart); anything else raises.
 """
 
 import ctypes
@@ -136,9 +146,24 @@ def _library():
     return lib
 
 
+def _check_tma_addressable(t, name):
+    """Raises ValueError unless TMA can address the matrix t: a base
+    16-byte aligned, unit stride along the last dimension, and every
+    other stride a multiple of 16 bytes."""
+    item = t.element_size()
+    if (t.data_ptr() % 16 or t.stride(-1) != 1
+            or any(s * item % 16 for s in t.stride()[:-1])):
+        raise ValueError(
+            "the CUDA kernels read {} with TMA, which takes a 16-byte "
+            "aligned base and rows a multiple of 16 bytes apart; got "
+            "address {:#x}, strides {} of {}-byte values.".format(
+                name, t.data_ptr(), tuple(t.stride()), item))
+
+
 def _check_kernel_operands(x, w_gate, w_up, w_down, compute_dtype):
     """What the kernels take: one CUDA device, compute dtype f32 or bf16,
-    widths that are multiples of 8."""
+    widths that are multiples of 8, operands TMA can address (x [rows,
+    D] and the weights as the kernels get them)."""
     for t in (w_gate, w_up, w_down):
         if t.device != x.device:
             raise ValueError("fused_swiglu operands must share one device; "
@@ -150,12 +175,16 @@ def _check_kernel_operands(x, w_gate, w_up, w_down, compute_dtype):
     if any(w % 8 for w in widths):
         raise ValueError("the CUDA kernels take D, d_ff and D_out that are "
                          "multiples of 8; got {}.".format(widths))
+    for t, name in ((x, "x"), (w_gate, "w_gate"), (w_up, "w_up"),
+                    (w_down, "w_down")):
+        _check_tma_addressable(t, name)
 
 
 def launch_gate_up(x, w_gate, w_up, activation):
     """Kernel (a): a [rows, d_ff] = act(x Wg^T) * (x Wu^T) at the
     reference's rounding points; x [rows, D], weights [d_ff, D], all
-    contiguous in one dtype."""
+    contiguous in one dtype and 16-byte aligned (the launch fails on
+    anything else)."""
     from cloud_tpu_torch.ops import _build
 
     rows, features = x.shape
@@ -174,7 +203,7 @@ def launch_gate_up(x, w_gate, w_up, activation):
 
 def launch_down(a, w_down):
     """Kernel (b): y [rows, D_out] = a Wd^T; a [rows, d_ff], w_down
-    [D_out, d_ff], contiguous in one dtype."""
+    [D_out, d_ff], contiguous in one dtype and 16-byte aligned."""
     from cloud_tpu_torch.ops import _build
 
     rows, d_ff = a.shape
@@ -201,9 +230,8 @@ class _FusedSwiGLU(torch.autograd.Function):
             y = swiglu_reference(x, w_gate, w_up, w_down, activation,
                                  x.dtype)
         else:
-            y = launch_down(launch_gate_up(x, w_gate.contiguous(),
-                                           w_up.contiguous(), activation),
-                            w_down.contiguous())
+            y = launch_down(launch_gate_up(x, w_gate, w_up, activation),
+                            w_down)
         ctx.save_for_backward(x, w_gate, w_up, w_down)
         ctx.activation = activation
         return y
@@ -257,15 +285,15 @@ def fused_swiglu(x, w_gate, w_up, w_down, activation="silu",
                                 compute_dtype)
     if compute_dtype is None:
         compute_dtype = torch.promote_types(x.dtype, w_gate.dtype)
-    if x.device.type == "cuda":
-        _check_kernel_operands(x, w_gate, w_up, w_down, compute_dtype)
-    elif any(w.device.type != "cpu" for w in (w_gate, w_up, w_down)):
-        raise ValueError("fused_swiglu operands must share one device.")
     lead = x.shape[:-1]
     x2 = x.to(compute_dtype).reshape(-1, features).contiguous()
-    y = _FusedSwiGLU.apply(x2, w_gate.to(compute_dtype),
-                           w_up.to(compute_dtype), w_down.to(compute_dtype),
-                           activation)
+    w_gate, w_up, w_down = (w.to(compute_dtype).contiguous()
+                            for w in (w_gate, w_up, w_down))
+    if x.device.type == "cuda":
+        _check_kernel_operands(x2, w_gate, w_up, w_down, compute_dtype)
+    elif any(w.device.type != "cpu" for w in (w_gate, w_up, w_down)):
+        raise ValueError("fused_swiglu operands must share one device.")
+    y = _FusedSwiGLU.apply(x2, w_gate, w_up, w_down, activation)
     return y.reshape(lead + (w_down.shape[0],))
 
 

@@ -152,3 +152,37 @@ def test_cost_at_the_llama_shape():
     # 0.573 ms at 989 TFLOP/s; the intermediate written and read back.
     assert abs(cost["total"]["flops"] / 989e12 * 1e3 - 0.573) < 1e-3
     assert cost["intermediate_bytes"] == 2 * 8192 * 5632 * 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_tma_rule_refuses_a_misaligned_base(dtype):
+    n = 64
+    misaligned = torch.empty(n + 1, dtype=dtype)[1:].view(8, 8)
+    assert misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tfm._check_tma_addressable(misaligned, "x")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_tma_rule_refuses_rows_not_16_bytes_apart(dtype):
+    # 12 values a row: 24 bytes in bf16, 48 in f32 (a multiple of 16), so
+    # take 10 (20 and 40 bytes).
+    t = torch.empty((4, 10), dtype=dtype)[:, :8]
+    with pytest.raises(ValueError, match="16 bytes apart"):
+        tfm._check_tma_addressable(t, "w_gate")
+    with pytest.raises(ValueError, match="TMA"):
+        tfm._check_tma_addressable(torch.empty((8, 4), dtype=dtype).T, "w")
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (1, 8), (3, 2048)],
+                         ids=["8x64", "1x8", "3x2048"])
+def test_tma_rule_takes_aligned_rows(shape):
+    for dtype in (torch.bfloat16, torch.float32):
+        t = torch.empty(shape, dtype=dtype)
+        assert t.data_ptr() % 16 == 0
+        tfm._check_tma_addressable(t, "x")
+        # A view that starts a whole number of rows in stays aligned.
+        tfm._check_tma_addressable(torch.empty((shape[0] + 2, shape[1]),
+                                              dtype=dtype)[2:], "x")

@@ -302,17 +302,25 @@ def _close_rows(got, want, rtol, atol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("activation", ["silu", "gelu_tanh", "gelu"])
-@pytest.mark.parametrize("rows", [1, 8, 200])
+# D and d_ff are not multiples of the tiles: ragged N and K. Rows 300, D
+# 520, d_ff 1352 span more than one bf16 tile (128 rows x 256 weight rows
+# x 64 deep) in every dimension, with tails in each (K: 520 = 8 x 64 + 8).
+@pytest.mark.parametrize("rows,d,f", [
+    pytest.param(1, 136, 328, id="1"),
+    pytest.param(8, 136, 328, id="8"),
+    pytest.param(200, 136, 328, id="200"),
+    pytest.param(300, 520, 1352, id="300"),
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_fused_mlp_kernels_match_plain_version(dtype, rows, activation):
+def test_fused_mlp_kernels_match_plain_version(dtype, rows, d, f,
+                                               activation):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from cloud_tpu_torch.ops import fused_mlp as tfm
 
     rng = np.random.default_rng(rows)
     dev = torch.device("cuda")
-    d, f = 136, 328   # not multiples of the tiles: ragged N and K
     x = torch.tensor(rng.normal(size=(rows, d)), dtype=dtype, device=dev)
     wg = torch.tensor(rng.normal(size=(f, d)) / np.sqrt(d), dtype=dtype,
                       device=dev)
@@ -357,3 +365,10 @@ def test_fused_mlp_wrapper_rejects_what_the_kernels_do_not_take():
         tfm.fused_swiglu(x, w[:90], w[:90], wd[:, :90])
     with pytest.raises(ValueError, match="device"):
         tfm.fused_swiglu(x, w.cpu(), w, wd)
+    # TMA takes a 16-byte aligned base: refused before any launch.
+    before = dict(tfm.launches)
+    shifted = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16,
+                          device=dev)[1:].view(4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfm.fused_swiglu(shifted, w, w, wd)
+    assert tfm.launches == before
