@@ -28,10 +28,11 @@ then:
    training shape (B 4, S 2048, H 32, H_kv 4, D 64, bf16), and at the
    GPT-2 shape with a key mask that leaves rows with no key, window
    256, softcap 50 (logits scaled to reach the cap), S 1000 and
-   causal=False; then times each kernel at the GPT-2 and the TinyLlama
-   shapes beside its bound, the plain version and
-   scaled_dot_product_attention (forward; forward + backward), which the
-   port never calls;
+   causal=False, and TinyLlama's widths at B 3, S 1000; then times each
+   kernel at the GPT-2 and the TinyLlama shapes beside its bound, the
+   plain version and scaled_dot_product_attention (forward; the whole
+   backward, beside the port's whole backward: delta, dq and dk/dv),
+   which the port never calls;
 4. holds the fused RMSNorm kernels (with and without the residual add)
    against `rmsnorm_residual_reference` at rows 8192 and 8191 x D 2048,
    bf16 and f32 (h bit for bit, normed element by element), and times
@@ -547,6 +548,10 @@ FLASH_CASES = (
      1),
     ("gpt2_noncausal", "bf16", (8, 1024, 12, 12, 64), dict(causal=False),
      None, 1),
+    # TinyLlama's widths at a ragged S: the last tiles of each example are
+    # partial, and a q tile's rows past S border the next example's rows.
+    ("tinyllama_s1000", "bf16", (3, 1000, 32, 4, 64), dict(causal=True),
+     None, 1),
 )
 # The case at each training path's shape; its errors go into that path's
 # rows of the kernel table.
@@ -727,7 +732,10 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     GPT-2's by default) by CUDA graph replays, beside its bound, the
     plain version (the forward by graph replays; the backward, which
     computes dq, dk and dv together, by `backward_ms`) and
-    scaled_dot_product_attention (the same; enable_gqa for H_kv < H)."""
+    scaled_dot_product_attention (the same; enable_gqa for H_kv < H).
+    Row "backward" holds the whole backward of the port (`_delta`, dq,
+    dk/dv through `flash_attention`'s autograd), SDPA and the plain
+    version, all by `backward_ms`, and `_delta` alone."""
     import torch
     import torch.nn.functional as F
     from cloud_tpu_torch.ops import attention as tatt
@@ -770,6 +778,15 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     lib_b, lib_kernels = backward_ms(
         F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa),
         leaves, dout.transpose(1, 2))
+    # The port's whole backward timed as SDPA's is: delta = rowsum(dO O)
+    # (plain PyTorch, as the JAX backward computes it), dq and dk/dv,
+    # through `flash_attention`'s autograd.
+    port_b, port_kernels = backward_ms(
+        tatt.flash_attention(*leaves, causal=True), leaves, dout)
+    rows["backward"] = {"port_ms": port_b, "port_kernels": port_kernels,
+                        "delta_ms": timed_ms(lambda: tatt._delta(dout, out)),
+                        "sdpa_ms": lib_b, "sdpa_kernels": lib_kernels,
+                        "plain_ms": plain_b}
     cost = tatt.flash_attention_cost(batch, seq, heads, kv_heads, head_dim,
                                      causal=True)
     for name, part, plain, lib in (
@@ -788,9 +805,12 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
                 name, *shape, row["ms"], row["bound_ms"], row["bound_by"],
                 row["flops"] / row["ms"] / 1e9, plain, lib))
     log("plain backward (dq+dk+dv) {:.4f} ms ({:g} kernels per call); sdpa "
-        "backward {:.4f} ms ({:g} kernels per call); device time of the "
-        "backward alone under the profiler".format(plain_b, plain_kernels,
-                                                   lib_b, lib_kernels))
+        "backward {:.4f} ms ({:g} kernels per call); the port's backward "
+        "(delta + dq + dk/dv) {:.4f} ms ({:g} kernels per call; delta alone "
+        "{:.4f} ms by graph replays), {:.2f}x sdpa's; device time of the "
+        "backward alone under the profiler".format(
+            plain_b, plain_kernels, lib_b, lib_kernels, port_b, port_kernels,
+            rows["backward"]["delta_ms"], port_b / lib_b))
     del q, k, v, dout, out, lse, delta, leaves
     torch.cuda.empty_cache()
     return rows

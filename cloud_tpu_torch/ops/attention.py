@@ -275,8 +275,10 @@ def _launch_dkdv(q, k, v, mask, dout, lse, delta, config):
 
 def _delta(dout, out):
     """rowsum(dO * O) in f32, [B, H, S] (outside the kernels, as the JAX
-    backward computes it)."""
-    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    backward computes it): one f32 copy of dO, multiplied in place by O
+    (the same f32 products as casting both)."""
+    prod = dout.to(torch.float32, copy=True).mul_(out)
+    return prod.sum(-1).transpose(1, 2).contiguous()
 
 
 class _FlashAttention(torch.autograd.Function):

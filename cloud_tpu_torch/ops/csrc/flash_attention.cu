@@ -20,47 +20,86 @@
 // Design. The TPU kernels walk a sequential grid and carry acc/m/l (or the
 // dq, dk, dv accumulators) in VMEM scratch between grid steps. Blocks on the
 // card run in parallel and carry nothing, so each block owns one output tile
-// and loops over the tiles it reduces over:
-// - forward and dq: one block per (q tile of 64 rows, head, example), a
-//   loop over the live key tiles of 64 (`_tile_live`: causal and window
-//   tiles that cannot hold an allowed pair are skipped);
-// - dk/dv: one block per (key tile of 64, kv head, example), a loop over
-//   every q head of its group and every live q tile, so the GQA sum lands in
-//   the block's own accumulators: deterministic, no atomics.
-// Four warps per block; each warp owns 16 rows of the block's output tile
-// (64 x 64 tiles).
-// - bf16 (the training path): every product runs on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands are loaded from
-//   shared memory with ldmatrix; Q (and dO in dq) fragments stay in
-//   registers; P and dS stay in registers and feed the second product as
-//   its A operand, rounded to bf16 first, which is the cast the TPU kernels
-//   make (p.astype(v.dtype) :216, ds.astype(k.dtype) :368); the next key
-//   (or q) tile is copied with cp.async into a second shared-memory stage
-//   while the current one is computed.
-// - f32 (the tests' oracle runs): the same tiles and loops, each product
-//   computed in f32 FMAs from shared memory in the mma fragment layout, P
-//   and dS passed through shared memory.
+// and loops over the tiles it reduces over (`_tile_live`: causal and window
+// tiles that cannot hold an allowed pair are skipped):
+// - forward: one block per (q tile of 64 rows, head, example), a loop over
+//   the live key tiles of 64;
+// - dq: one block per (q tile, head, example), a loop over the live key
+//   tiles of 64;
+// - dk/dv: one block per (key tile, kv head, example), a loop over every q
+//   head of its group and every live q tile, so the GQA sum lands in the
+//   block's own accumulators: deterministic, no atomics.
+//
+// bf16 (the training path):
+// - The backward (dq, dk/dv) is built for Hopper on the primitives of
+//   sm90.cuh. A block is a producer warpgroup and two or three consumer
+//   warpgroups. The producer's first warp stages the tiles (TMA, 128-byte
+//   swizzled boxes of rows x 64 values, from a rank-4 map of each
+//   [B, S, H, D] tensor, so a box past S is zero-filled within its own
+//   example) into a ring of shared-memory stages with a full and an empty
+//   mbarrier each, with lse, delta and the key flags beside them; its
+//   warpgroup lowers its registers with setmaxnreg for the consumers,
+//   which own 64 output rows each. Per tile a consumer runs S (S^T in
+//   dk/dv) and dP with wgmma m64nNk16 from shared memory (both operands
+//   K-major), the per-element step in registers, then the second products
+//   with P and dS (P^T, dS^T) as register A operands, rounded to bf16
+//   first, which is the cast the TPU kernels make (p.astype(do.dtype)
+//   :407, ds.astype(k.dtype) :368, ds.astype(q.dtype) :417), against the
+//   same Q, dO or K tile read MN-major (transposed B): nothing is
+//   transposed in memory. A consumer releases a stage once the wgmmas
+//   that read it have retired.
+//     dq: 64 q rows per consumer (Q, dO resident): three consumers, 192
+//       rows, at D 64 (registers 32 / 160), two at D 128 (40 / 232); key
+//       tiles of 64 streamed through 4 stages (3 at D 128); S and dP
+//       m64n64, dQ m64nD.
+//     dk/dv: 128 keys per block (K, V resident), two consumers (40 / 232;
+//       a third would leave each 160 registers, where dk/dv spills);
+//       (Q, dO) tiles of 64 q rows (32 at D 128, where dK and dV hold
+//       twice the registers) through 4 stages; S^T and dP^T m64n64
+//       (m64n32), dV and dK m64nD.
+//   Under causal masking a block's work grows with its distance from the
+//   diagonal's start (the first key tile sees every q tile, the last one
+//   q tile), so blockIdx maps heaviest first: dk/dv's key tiles ascending,
+//   dq's q tiles descending; dq puts the q heads of a GQA group side by
+//   side, so they read the K/V tiles they share from L2.
+// - The forward is the earlier design, next to be redesigned: four warps,
+//   mma.sync m16n8k16 fed by ldmatrix, Q fragments in registers, P fed
+//   back as the A operand (p.astype(v.dtype) :216), the next key tile
+//   copied with cp.async into a second shared-memory stage.
+// f32 (the tests' oracle runs): four warps, 64 x 64 tiles (32 q rows per
+// inner dk/dv tile at D 128), each product computed in f32 FMAs from shared
+// memory in the mma fragment layout, P and dS passed through shared memory.
 // Both types run one copy of the per-element steps (logit2, fwd_softmax,
-// dq_ds, dkdv_pds: scale, softcap, masking, online softmax, dS) and of
-// the epilogues, so the f32 check covers the arithmetic the bf16 kernels
-// train with; the types differ only in operand movement and products.
+// dq_ds, dkdv_pds: scale, softcap, masking, online softmax, dS; the last
+// two over any number of n8 accumulator tiles) and of the epilogues, so
+// the f32 check covers the arithmetic the bf16 kernels train with; the
+// types differ only in operand movement and products.
 //
 // Masking: a masked probability is set to 0 explicitly (:213, :340), so a
 // row with no allowed key ends with l == 0 and writes out 0 and
 // lse = -1e30; its dq is 0 and it adds nothing to dk/dv. The softcap
-// derivative 1 - tanh^2 uses the uncapped logit (:333-336).
+// derivative 1 - tanh^2 uses the uncapped logit (:333-336). Rows and keys
+// past S are masked explicitly too; the zeros TMA fills in are not relied
+// on.
 //
 // Bound on this card: at GPT-2 training shapes (B 8, S 1024, H 12, D 64,
 // bf16, causal) the forward does 12.9 GFLOP over 51 MB, about 250 flop per
 // byte, just under the H100's ~295 flop/byte ridge: bytes and tensor-core
-// operations bound it about equally (15 us either way); dq and dk/dv do
-// more products on the same bytes and are operation-bound. These kernels use
-// mma.sync from shared memory; wgmma, TMA and warp specialisation are the
-// levers left for later.
+// operations bound it about equally (15 us either way). dq (three
+// products) and dk/dv (four) read the same bytes and are operation-bound:
+// at TinyLlama's shape (B 4, S 2048, H 32, H_kv 4, D 64) 103 and 137
+// GFLOP, 0.104 and 0.139 ms at 989 TFLOP/s, against ~0.02 ms of bytes.
+// Beside the products, each kernel spends an exp2, the dS arithmetic and
+// bf16 packs on every live (q row, key) pair, which the consumer
+// warpgroups overlap with each other's wgmmas; that step is specialised
+// per tile (no mask tests on a tile every pair of which is allowed, no
+// softcap test without a cap).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -158,16 +197,23 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Flags of the current key tile: 1 when the key exists and the key mask
-// keeps it.
+// Flags of keys k0 .. k0 + n - 1, written by the threads first, first +
+// stride, ...: 1 when the key exists and the key mask keeps it.
 __device__ __forceinline__ void load_key_flags(uint8_t* flags,
                                                const Params& p, int b,
-                                               int k0, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
+                                               int k0, int n, int first,
+                                               int stride) {
+  for (int i = first; i < n; i += stride) {
     const int col = k0 + i;
     flags[i] = col < p.seq &&
                (p.mask == nullptr || p.mask[(size_t)b * p.seq + col] != 0);
   }
+}
+// The same, by every thread of a kThreads block.
+__device__ __forceinline__ void load_key_flags(uint8_t* flags,
+                                               const Params& p, int b,
+                                               int k0, int n) {
+  load_key_flags(flags, p, b, k0, n, threadIdx.x, kThreads);
 }
 
 using bf16 = __nv_bfloat16;
@@ -190,17 +236,32 @@ __device__ __forceinline__ bool tile_full(const Params& p, int q0, int nq,
   return p.window == 0 || k0 > q0 + nq - 1 - p.window;
 }
 
-// A raw score in log2 units: sm_scale, then the softcap; *dcap gets the
-// softcap derivative (1 without a cap).
+// A raw score in log2 units: sm_scale, then the softcap (kCap, when
+// p.softcap > 0); *dcap gets the softcap derivative (1 without a cap).
+template <bool kCap>
 __device__ __forceinline__ float logit2(const Params& p, float raw,
                                         float* dcap) {
-  if (p.softcap > 0.f) {
+  if (kCap) {
     const float th = tanhf(raw * p.sm_scale / p.softcap);
     *dcap = 1.f - th * th;
     return p.softcap * th * kLog2e;
   }
   *dcap = 1.f;
   return raw * (p.sm_scale * kLog2e);
+}
+// The same with the softcap tested per score (the forward).
+__device__ __forceinline__ float logit2(const Params& p, float raw,
+                                        float* dcap) {
+  return p.softcap > 0.f ? logit2<true>(p, raw, dcap)
+                         : logit2<false>(p, raw, dcap);
+}
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to 0): the
+// backward's probabilities, whose exponent is at most 0 up to rounding.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Online-softmax update of one 16 x 64 score tile (this lane's rows row0,
@@ -259,62 +320,109 @@ __device__ __forceinline__ void fwd_softmax(const Params& p,
   }
 }
 
-// dS for a 16 x 16 block of (q row, key) pairs held as two 16 x 8
+// dS for a 16-row block of (q row, key) pairs held as NT 16 x 8
 // accumulator tiles (s: raw scores in, dS out; dp: dO V^T). This lane's
 // rows are row0 and row0 + 8, its keys k0 + c0 + u * 8 + t + (i & 1);
 // lse2 in log2 units.
-template <bool kFull>
-__device__ __forceinline__ void dq_ds(const Params& p, float (&s)[2][4],
-                                      const float (&dp)[2][4],
+template <bool kFull, bool kCap, int NT>
+__device__ __forceinline__ void dq_ds(const Params& p, float (&s)[NT][4],
+                                      const float (&dp)[NT][4],
                                       const uint8_t* fl, int row0, int k0,
                                       int c0, int t, const float* lse2,
                                       const float* delta) {
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
+  for (int u = 0; u < NT; ++u) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int j = i >> 1;
       float dcap;
-      const float x = logit2(p, s[u][i], &dcap);
+      const float x = logit2<kCap>(p, s[u][i], &dcap);
       bool allowed = true;
       if (!kFull) {
         const int c = c0 + u * 8 + t + (i & 1);
         allowed = fl[c] && band_ok(p, row0 + j * 8, k0 + c);
       }
-      const float pv = allowed ? exp2f(x - lse2[j]) : 0.f;
+      const float pv = allowed ? ex2(x - lse2[j]) : 0.f;
       s[u][i] = pv * (dp[u][i] - delta[j]) * p.sm_scale * dcap;
     }
   }
 }
 
-// P^T and dS^T for a (16 keys) x (16 q rows) block of dk/dv: s (raw
-// scores) becomes P^T, dp (dP^T) becomes dS^T. Keys key0, key0 + 8; q rows
-// q0 + r, r = r0 + u * 8 + t + (i & 1); lse and delta per q row of the
-// tile, lse in log2 units.
-template <bool kFull>
-__device__ __forceinline__ void dkdv_pds(const Params& p, float (&s)[2][4],
-                                         float (&dp)[2][4],
+// P^T and dS^T for a (16 keys) x (NT * 8 q rows) block of dk/dv: s (raw
+// scores) becomes P^T, dp (dP^T) becomes dS^T. Keys key0, key0 + 8 (fl
+// holds the flags of keys k0, k0 + 1, ...); q rows q0 + r, r = r0 + u * 8
+// + t + (i & 1); lse (log2 units) and delta per q row of the tile, 8-byte
+// aligned (read in pairs).
+template <bool kFull, bool kCap, int NT>
+__device__ __forceinline__ void dkdv_pds(const Params& p, float (&s)[NT][4],
+                                         float (&dp)[NT][4],
                                          const uint8_t* fl, int key0,
                                          int k0, int q0, int r0, int t,
                                          const float* lse2_s,
                                          const float* delta_s) {
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
+  for (int u = 0; u < NT; ++u) {
+    const int r2 = r0 + u * 8 + t;
+    const float2 lse2 = *reinterpret_cast<const float2*>(lse2_s + r2);
+    const float2 delta = *reinterpret_cast<const float2*>(delta_s + r2);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int key = key0 + (i >> 1) * 8;
-      const int r = r0 + u * 8 + t + (i & 1);
+      const int r = r2 + (i & 1);
       float dcap;
-      const float x = logit2(p, s[u][i], &dcap);
+      const float x = logit2<kCap>(p, s[u][i], &dcap);
       bool allowed = true;
       if (!kFull) {
         const int row = q0 + r;
         allowed = row < p.seq && fl[key - k0] && band_ok(p, row, key);
       }
-      const float pv = allowed ? exp2f(x - lse2_s[r]) : 0.f;
-      dp[u][i] = pv * (dp[u][i] - delta_s[r]) * p.sm_scale * dcap;
+      const float pv = allowed ? ex2(x - ((i & 1) ? lse2.y : lse2.x)) : 0.f;
+      dp[u][i] = pv * (dp[u][i] - ((i & 1) ? delta.y : delta.x)) *
+                 p.sm_scale * dcap;
       s[u][i] = pv;
     }
+  }
+}
+
+// dq_ds and dkdv_pds specialised per tile: on `full` (tile_full) and on
+// the softcap, so that neither is tested per score.
+template <int NT>
+__device__ __forceinline__ void dq_ds_tile(const Params& p, bool full,
+                                           float (&s)[NT][4],
+                                           const float (&dp)[NT][4],
+                                           const uint8_t* fl, int row0,
+                                           int k0, int c0, int t,
+                                           const float* lse2,
+                                           const float* delta) {
+  if (p.softcap > 0.f) {
+    if (full)
+      dq_ds<true, true>(p, s, dp, fl, row0, k0, c0, t, lse2, delta);
+    else
+      dq_ds<false, true>(p, s, dp, fl, row0, k0, c0, t, lse2, delta);
+  } else if (full) {
+    dq_ds<true, false>(p, s, dp, fl, row0, k0, c0, t, lse2, delta);
+  } else {
+    dq_ds<false, false>(p, s, dp, fl, row0, k0, c0, t, lse2, delta);
+  }
+}
+template <int NT>
+__device__ __forceinline__ void dkdv_pds_tile(const Params& p, bool full,
+                                              float (&s)[NT][4],
+                                              float (&dp)[NT][4],
+                                              const uint8_t* fl, int key0,
+                                              int k0, int q0, int r0, int t,
+                                              const float* lse2_s,
+                                              const float* delta_s) {
+  if (p.softcap > 0.f) {
+    if (full)
+      dkdv_pds<true, true>(p, s, dp, fl, key0, k0, q0, r0, t, lse2_s, delta_s);
+    else
+      dkdv_pds<false, true>(p, s, dp, fl, key0, k0, q0, r0, t, lse2_s,
+                            delta_s);
+  } else if (full) {
+    dkdv_pds<true, false>(p, s, dp, fl, key0, k0, q0, r0, t, lse2_s, delta_s);
+  } else {
+    dkdv_pds<false, false>(p, s, dp, fl, key0, k0, q0, r0, t, lse2_s, delta_s);
   }
 }
 
@@ -528,10 +636,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
                             LD);
         }
       }
-      if (full)
-        dq_ds<true>(p, s, dp, flags, row0, k0, n * 8, t, lse, delta);
-      else
-        dq_ds<false>(p, s, dp, flags, row0, k0, n * 8, t, lse, delta);
+      dq_ds_tile(p, full, s, dp, flags, row0, k0, n * 8, t, lse, delta);
 #pragma unroll
       for (int u = 0; u < 2; ++u)
 #pragma unroll
@@ -640,12 +745,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(Params p) {
                               do_s + (n + u) * 8 * LD + kk, LD);
           }
         }
-        if (full)
-          dkdv_pds<true>(p, s, dp, flags, key0, k0, q0, n * 8, t, lse_s,
-                         delta_s);
-        else
-          dkdv_pds<false>(p, s, dp, flags, key0, k0, q0, n * 8, t, lse_s,
-                          delta_s);
+        dkdv_pds_tile(p, full, s, dp, flags, key0, k0, q0, n * 8, t, lse_s,
+                      delta_s);
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
 #pragma unroll
@@ -685,8 +786,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(Params p) {
 // layout); the next key (or q) tile copied with cp.async while the
 // current one is computed (two shared-memory stages).
 // ---------------------------------------------------------------------------
-
-constexpr int kTileQ = 64;  // q rows per inner tile of the bf16 dk/dv
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -882,266 +981,467 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   fwd_store<bf16, DT>(p, b, h, row0, acc, m, l, lane);
 }
 
+enum Which { kForward = 0, kDq = 1, kDkdv = 2 };
+
+// ---------------------------------------------------------------------------
+// bf16 backward (the training path): dq and dk/dv on wgmma, fed by TMA,
+// warp-specialised. Warpgroup 0 produces (its first warp stages the
+// tiles; registers lowered with setmaxnreg), and the next two or three
+// consume (registers raised), each owning 64 rows of the block's output
+// tile, the M of its wgmma products. Every operand
+// tile is a TMA box of rows x 64 values, 128-byte swizzled, which wgmma
+// reads K-major for S (and dP) and MN-major for the second product, so
+// Q, dO and K are never transposed in memory.
+// ---------------------------------------------------------------------------
+
+constexpr int kWg = 128;           // threads per warpgroup
+constexpr int kWgRows = 64;        // rows of a consumer's tile
+constexpr uint32_t kBoxRow = 128;  // bytes of a box row: 64 bf16
+
+// The warpgroups of a block: a producer and C consumers, with the
+// registers setmaxnreg gives each (the 64K of the SM shared out).
+template <int C>
+struct Warpgroups {
+  static constexpr int kConsumers = C;
+  static constexpr int kThreads = (C + 1) * kWg;
+  static constexpr int kProducerRegs = C == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = C == 3 ? 160 : 232;
+};
+
+// dq: one block per (kM q rows, head, example); Q and dO resident, K and
+// V streamed in tiles of 64 keys through a ring of kStages. At D 64 a dq
+// consumer fits in 160 registers, so three of them (192 rows) hide more
+// of each other's latency than two; at D 128 two.
 template <int D>
-size_t dq_smem_bf16() {
-  return sizeof(bf16) * (size_t)(2 * kBlockM + 4 * kBlockN) * (D + 8) +
-         2 * kBlockN;
+constexpr int dq_consumers() {
+  return D == 64 ? 3 : 2;
+}
+template <int D>
+struct DqTiles : Warpgroups<dq_consumers<D>()> {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kM = dq_consumers<D>() * kWgRows;
+  static constexpr int kN = kBlockN;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr uint32_t kQ = kBoxes * kM * kBoxRow;    // Q or dO
+  static constexpr uint32_t kKV = kBoxes * kN * kBoxRow;   // K or V, a stage
+  // Q, dO, the ring, its key flags, the barriers (Q/dO, full, empty) and
+  // slack to align to 1024 bytes.
+  static constexpr size_t kSmem = 2 * kQ + kStages * (2 * kKV + kN) +
+                                  (2 * kStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// dk/dv: one block per (128 keys, kv head, example); K and V resident,
+// (Q, dO, lse, delta) streamed for every q head of the group and every
+// live q tile of kTQ rows. kTQ is the N of S^T and dP^T: 64 at D 64, 32 at
+// D 128, where dK and dV take twice the registers. Two consumers: a dk/dv
+// consumer spills in the 160 registers three would leave it.
+template <int D>
+struct DkdvTiles : Warpgroups<2> {
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kN = kConsumers * kWgRows;
+  static constexpr int kTQ = D == 64 ? 64 : 32;
+  static constexpr int kStages = 4;
+  static constexpr uint32_t kKV = kBoxes * kN * kBoxRow;   // K or V
+  static constexpr uint32_t kQ = kBoxes * kTQ * kBoxRow;   // Q or dO, a stage
+  // K, V, the ring, its lse and delta rows, the key flags, the barriers
+  // (K/V, full, empty) and slack to align to 1024 bytes.
+  static constexpr size_t kSmem = 2 * kKV + kStages * 2 * kQ +
+                                  kStages * 2 * kTQ * sizeof(float) + kN +
+                                  (2 * kStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (sm90::smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void next_stage(int& stage, uint32_t& phase,
+                                           int stages) {
+  if (++stage == stages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// S = A . B^T and dP over D for one consumer: A (64 rows) and B (N rows)
+// are tiles of kBoxes boxes `a_box` and `b_box` values apart.
+template <int D, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4],
+                                       float (&dp)[NT][4], const bf16* a,
+                                       const bf16* b, const bf16* da,
+                                       const bf16* db, int a_box,
+                                       int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int x = kk / 4, off = 2 * (kk % 4);
+    sm90::wgmma_ss(s, sm90::desc_k128(a + x * a_box) + off,
+                   sm90::desc_k128(b + x * b_box) + off, kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int x = kk / 4, off = 2 * (kk % 4);
+    sm90::wgmma_ss(dp, sm90::desc_k128(da + x * a_box) + off,
+                   sm90::desc_k128(db + x * b_box) + off, kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::fence_operands(s);
+  sm90::fence_operands(dp);
+  sm90::wgmma_wait<0>();
+  sm90::fence_operands(s);
+  sm90::fence_operands(dp);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_bf16(Params p) {
-  constexpr int LD = D + 8, DT = D / 8, KT = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBlockM][LD]
-  bf16* do_s = q_s + kBlockM * LD;            // [kBlockM][LD]
-  bf16* kv_s = do_s + kBlockM * LD;  // [stage][K | V][kBlockN][LD]
-  uint8_t* flags = reinterpret_cast<uint8_t*>(kv_s + 4 * kBlockN * LD);
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
+    flash_dq_bf16(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_do,
+                  const Params p) {
+  using T = DqTiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(smem);          // [box][kM][64]
+  bf16* do_s = reinterpret_cast<bf16*>(smem + T::kQ);
+  unsigned char* ring = smem + 2 * T::kQ;  // [stage][K | V][box][kN][64]
+  uint8_t* flags = ring + T::kStages * 2 * T::kKV;    // [stage][kN]
+  uint64_t* qdo_full =
+      reinterpret_cast<uint64_t*>(flags + T::kStages * T::kN);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + T::kStages;
 
+  // Heaviest first: the q tile runs down as blockIdx.x runs up (under
+  // causal masking the last q tile sees the most keys); the heads of one
+  // GQA group are neighbours, so the K/V tiles they share stay in L2.
   const int S = p.seq;
-  const int q0 = blockIdx.x * kBlockM, h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (S + T::kM - 1) / T::kM;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (p.heads * p.batch));
+  const int h = blockIdx.x % p.heads;
+  const int b = (blockIdx.x / p.heads) % p.batch;
   const int hk = h / (p.heads / p.kv_heads);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  const size_t qs = (size_t)p.heads * D, ks = (size_t)p.kv_heads * D;
-  const size_t qoff = ((size_t)b * S + q0) * qs + h * D;
-  const bf16* kg = static_cast<const bf16*>(p.k) + (size_t)b * S * ks + hk * D;
-  const bf16* vg = static_cast<const bf16*>(p.v) + (size_t)b * S * ks + hk * D;
+  const int q0 = qt * T::kM;
+  // The live key tiles form one run [k_lo, k_hi).
+  const int k_lo = first_live_key(p, q0, T::kM);
+  int k_hi = k_lo;
+  while (k_hi < S && tile_live(p, q0, T::kM, k_hi, T::kN)) k_hi += T::kN;
+  const int wg = threadIdx.x / kWg;
 
-  load_tile_async<D>(q_s, static_cast<const bf16*>(p.q) + qoff, qs, kBlockM,
-                     S - q0);
-  load_tile_async<D>(do_s, static_cast<const bf16*>(p.dout) + qoff, qs,
-                     kBlockM, S - q0);
-  cp_async_commit();
-  int k0 = first_live_key(p, q0, kBlockM);
-  if (k0 < S) {
-    load_tile_async<D>(kv_s, kg + k0 * ks, ks, kBlockN, S - k0);
-    load_tile_async<D>(kv_s + kBlockN * LD, vg + k0 * ks, ks, kBlockN,
-                       S - k0);
-    load_key_flags(flags, p, b, k0, kBlockN);
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(qdo_full, 1);
+    for (int s = 0; s < T::kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);             // the producer warp
+      sm90::mbar_init(&empty[s], T::kConsumers * kWg / 32);  // their warps
+    }
+    sm90::fence_barrier_init();
   }
-  cp_async_commit();
-
-  const int row0 = q0 + warp * 16 + g;
-  float lse[2], delta[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int row = row0 + j * 8;
-    const size_t idx = ((size_t)b * p.heads + h) * S + row;
-    lse[j] = row < S ? p.lse_in[idx] * kLog2e : 0.f;
-    delta[j] = row < S ? p.delta[idx] : 0.f;
-  }
-  cp_async_wait<1>();
   __syncthreads();
-  uint32_t qf[KT][4], dof[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    ldsm_x4(qf[kk], q_s + warp * 16 * LD + kk * 16 + a_off(LD));
-    ldsm_x4(dof[kk], do_s + warp * 16 * LD + kk * 16 + a_off(LD));
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
-  for (int stage = 0; k0 < S && tile_live(p, q0, kBlockM, k0, kBlockN);
-       k0 += kBlockN, stage ^= 1) {
-    const int kn = k0 + kBlockN;
-    if (kn < S && tile_live(p, q0, kBlockM, kn, kBlockN)) {
-      bf16* nxt = kv_s + (stage ^ 1) * 2 * kBlockN * LD;
-      load_tile_async<D>(nxt, kg + kn * ks, ks, kBlockN, S - kn);
-      load_tile_async<D>(nxt + kBlockN * LD, vg + kn * ks, ks, kBlockN,
-                         S - kn);
-      load_key_flags(flags + (stage ^ 1) * kBlockN, p, b, kn, kBlockN);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* k_s = kv_s + stage * 2 * kBlockN * LD;
-    const bf16* v_s = k_s + kBlockN * LD;
-    const uint8_t* fl = flags + stage * kBlockN;
-    const bool full = tile_full(p, q0, kBlockM, k0, kBlockN);
-
-    // 16 keys at a time: S and dP for them, dS, then dQ += dS K.
-#pragma unroll
-    for (int n = 0; n < kBlockN / 8; n += 2) {
-      float s[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t bb[4];
-        ldsm_x4(bb, k_s + n * 8 * LD + kk * 16 + bt_off(LD));
-        mma_bf16(s[0], qf[kk], bb);
-        mma_bf16(s[1], qf[kk], bb + 2);
-        ldsm_x4(bb, v_s + n * 8 * LD + kk * 16 + bt_off(LD));
-        mma_bf16(dp[0], dof[kk], bb);
-        mma_bf16(dp[1], dof[kk], bb + 2);
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<T::kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(qdo_full, 2 * T::kQ);
+        for (int x = 0; x < T::kBoxes; ++x) {
+          sm90::tma_load_4d(q_s + x * T::kM * 64, &map_q, qdo_full, x * 64,
+                            h, q0, b);
+          sm90::tma_load_4d(do_s + x * T::kM * 64, &map_do, qdo_full,
+                            x * 64, h, q0, b);
+        }
       }
-      if (full)
-        dq_ds<true>(p, s, dp, fl, row0, k0, n * 8, t, lse, delta);
-      else
-        dq_ds<false>(p, s, dp, fl, row0, k0, n * 8, t, lse, delta);
-      uint32_t a[4];
-      acc_to_a(a, s[0], s[1]);
-#pragma unroll
-      for (int d = 0; d < DT; d += 2) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, k_s + n * 8 * LD + d * 8 + bn_off(LD));
-        mma_bf16(acc[d], a, bb);
-        mma_bf16(acc[d + 1], a, bb + 2);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int k0 = k_lo; k0 < k_hi; k0 += T::kN) {
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        load_key_flags(flags + stage * T::kN, p, b, k0, T::kN, lane, 32);
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::kKV);
+          bf16* k_s = reinterpret_cast<bf16*>(ring + stage * 2 * T::kKV);
+          bf16* v_s = k_s + T::kKV / sizeof(bf16);
+          for (int x = 0; x < T::kBoxes; ++x) {
+            sm90::tma_load_4d(k_s + x * T::kN * 64, &map_k, &full[stage],
+                              x * 64, hk, k0, b);
+            sm90::tma_load_4d(v_s + x * T::kN * 64, &map_v, &full[stage],
+                              x * 64, hk, k0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&full[stage]);
+        }
+        next_stage(stage, phase, T::kStages);
       }
     }
-    __syncthreads();
+  } else {
+    sm90::setmaxnreg_inc<T::kConsumerRegs>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int t = (lane & 3) * 2;
+    const int qc = q0 + c * kWgRows;  // this consumer's 64 rows
+    const int row0 = qc + warp * 16 + (lane >> 2);
+    float lse[2], delta[2];  // lse in log2 units
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = row0 + j * 8;
+      const size_t idx = ((size_t)b * p.heads + h) * S + row;
+      lse[j] = row < S ? p.lse_in[idx] * kLog2e : 0.f;
+      delta[j] = row < S ? p.delta[idx] : 0.f;
+    }
+    float acc[D / 8][4];
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+      acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+    const bf16* qw = q_s + c * kWgRows * 64;
+    const bf16* dow = do_s + c * kWgRows * 64;
+    sm90::mbar_wait(qdo_full, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int k0 = k_lo; k0 < k_hi; k0 += T::kN) {
+      sm90::mbar_wait(&full[stage], phase);
+      const bf16* k_s = reinterpret_cast<const bf16*>(ring +
+                                                      stage * 2 * T::kKV);
+      const bf16* v_s = k_s + T::kKV / sizeof(bf16);
+      if (qc < S && tile_live(p, qc, kWgRows, k0, T::kN)) {
+        // S = Q K^T and dP = dO V^T, then dS in registers.
+        float s[T::kN / 8][4], dp[T::kN / 8][4];
+        sm90::wgmma_fence();
+        scores<D>(s, dp, qw, k_s, dow, v_s, T::kM * 64, T::kN * 64);
+        const uint8_t* fl = flags + stage * T::kN;
+        dq_ds_tile(p, tile_full(p, qc, kWgRows, k0, T::kN), s, dp, fl, row0,
+                   k0, 0, t, lse, delta);
+        // dQ += dS K: dS from registers, K read MN-major.
+        uint32_t a[T::kN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < T::kN / 16; ++kk)
+          acc_to_a(a[kk], s[2 * kk], s[2 * kk + 1]);
+        sm90::fence_operands(acc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < T::kN / 16; ++kk)
+          sm90::wgmma_rs_tb(acc, a[kk],
+                            sm90::desc_mn128(k_s + kk * 16 * 64,
+                                             T::kN * kBoxRow));
+        sm90::wgmma_commit();
+        sm90::fence_operands(acc);
+        sm90::wgmma_wait<0>();  // the stage is read; release it below
+        sm90::fence_operands(acc);
+      }
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      next_stage(stage, phase, T::kStages);
+    }
+    const size_t qs = (size_t)p.heads * D;
+    store_rows<bf16, D / 8>(
+        static_cast<bf16*>(p.dq) + (size_t)b * S * qs + h * D, qs, row0, S,
+        acc, t);
   }
-  cp_async_wait<0>();
-
-  store_rows<bf16, DT>(static_cast<bf16*>(p.dq) + (size_t)b * S * qs + h * D,
-                       qs, row0, S, acc, t);
 }
 
 template <int D>
-size_t dkdv_smem_bf16() {
-  return sizeof(bf16) * (size_t)(2 * kBlockN + 4 * kTileQ) * (D + 8) +
-         sizeof(float) * 4 * kTileQ + kBlockN;
-}
+__global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
+    flash_dkdv_bf16(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const Params p) {
+  using T = DkdvTiles<D>;
+  constexpr int NQ = T::kTQ / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);          // [box][kN][64]
+  bf16* v_s = reinterpret_cast<bf16*>(smem + T::kKV);
+  unsigned char* ring = smem + 2 * T::kKV;  // [stage][Q | dO][box][kTQ][64]
+  // [stage][lse (log2 units) | delta][kTQ]
+  float* rows_s = reinterpret_cast<float*>(ring + T::kStages * 2 * T::kQ);
+  uint8_t* flags =
+      reinterpret_cast<uint8_t*>(rows_s + T::kStages * 2 * T::kTQ);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(flags + T::kN);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + T::kStages;
 
-// Loads the (q head, q tile) of linear index `it` into shared-memory stage
-// `st`: Q and dO with cp.async, lse and delta with plain loads.
-template <int D>
-__device__ __forceinline__ void dkdv_load(const Params& p, int b, int hk,
-                                          int it, int nq, int q_lo,
-                                          bf16* qdo, float* rows) {
-  constexpr int LD = D + 8;
-  const int group = p.heads / p.kv_heads;
-  const int h = hk * group + it / nq;
-  const int q0 = q_lo + (it % nq) * kTileQ;
+  // Heaviest first: key tile 0, which every q tile sees under causal
+  // masking, comes first.
   const int S = p.seq;
-  const size_t qs = (size_t)p.heads * D;
-  const size_t off = ((size_t)b * S + q0) * qs + h * D;
-  load_tile_async<D>(qdo, static_cast<const bf16*>(p.q) + off, qs, kTileQ,
-                     S - q0);
-  load_tile_async<D>(qdo + kTileQ * LD, static_cast<const bf16*>(p.dout) + off,
-                     qs, kTileQ, S - q0);
-  const size_t r0 = ((size_t)b * p.heads + h) * S + q0;
-  for (int i = threadIdx.x; i < kTileQ; i += kThreads) {
-    const bool ok = q0 + i < S;
-    rows[i] = ok ? p.lse_in[r0 + i] * kLog2e : 0.f;
-    rows[kTileQ + i] = ok ? p.delta[r0 + i] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkdv_bf16(Params p) {
-  constexpr int LD = D + 8, DT = D / 8, KT = D / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [kBlockN][LD]
-  bf16* v_s = k_s + kBlockN * LD;             // [kBlockN][LD]
-  bf16* qdo_s = v_s + kBlockN * LD;  // [stage][Q | dO][kTileQ][LD]
-  float* rows_s = reinterpret_cast<float*>(qdo_s + 4 * kTileQ * LD);
-  // rows_s: [stage][lse | delta][kTileQ]
-  uint8_t* flags = reinterpret_cast<uint8_t*>(rows_s + 4 * kTileQ);
-
-  const int S = p.seq;
-  const int k0 = blockIdx.x * kBlockN, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.heads / p.kv_heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  const size_t ks = (size_t)p.kv_heads * D;
-  const size_t koff = ((size_t)b * S + k0) * ks + hk * D;
-  load_tile_async<D>(k_s, static_cast<const bf16*>(p.k) + koff, ks, kBlockN,
-                     S - k0);
-  load_tile_async<D>(v_s, static_cast<const bf16*>(p.v) + koff, ks, kBlockN,
-                     S - k0);
-  load_key_flags(flags, p, b, k0, kBlockN);
-
+  const int kt = blockIdx.x / (p.kv_heads * p.batch);
+  const int hk = blockIdx.x % p.kv_heads;
+  const int b = (blockIdx.x / p.kv_heads) % p.batch;
+  const int k0 = kt * T::kN;
   // The live q tiles form one run [q_lo, q_hi) (causal and window bands
   // are contiguous); every q head of the group walks the same run.
   int q_lo = 0;
-  while (q_lo < S && !tile_live(p, q_lo, kTileQ, k0, kBlockN))
-    q_lo += kTileQ;
+  while (q_lo < S && !tile_live(p, q_lo, T::kTQ, k0, T::kN)) q_lo += T::kTQ;
   int q_hi = q_lo;
-  while (q_hi < S && tile_live(p, q_hi, kTileQ, k0, kBlockN)) q_hi += kTileQ;
-  const int nq = (q_hi - q_lo) / kTileQ;
+  while (q_hi < S && tile_live(p, q_hi, T::kTQ, k0, T::kN)) q_hi += T::kTQ;
+  const int nq = (q_hi - q_lo) / T::kTQ;
   const int total = group * nq;
-  if (total > 0)
-    dkdv_load<D>(p, b, hk, 0, nq, q_lo, qdo_s, rows_s);
-  cp_async_commit();
+  const int wg = threadIdx.x / kWg;
 
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.f;
-    dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 32);  // the producer warp
+    for (int s = 0; s < T::kStages; ++s) {
+      sm90::mbar_init(&full[s], 32);
+      sm90::mbar_init(&empty[s], T::kConsumers * kWg / 32);  // their warps
+    }
+    sm90::fence_barrier_init();
   }
-  const int key0 = k0 + warp * 16 + g;  // this lane's keys: key0, key0 + 8
-  const bf16* kw = k_s + warp * 16 * LD + a_off(LD);
-  const bf16* vw = v_s + warp * 16 * LD + a_off(LD);
+  __syncthreads();
 
-  for (int it = 0, stage = 0; it < total; ++it, stage ^= 1) {
-    if (it + 1 < total)
-      dkdv_load<D>(p, b, hk, it + 1, nq, q_lo,
-                   qdo_s + (stage ^ 1) * 2 * kTileQ * LD,
-                   rows_s + (stage ^ 1) * 2 * kTileQ);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this q tile (and, first time, K and V) is visible
-    const int q0 = q_lo + (it % nq) * kTileQ;
-    const bf16* q_s = qdo_s + stage * 2 * kTileQ * LD;
-    const bf16* do_s = q_s + kTileQ * LD;
-    const float* lse_s = rows_s + stage * 2 * kTileQ;  // log2 units
-    const float* delta_s = lse_s + kTileQ;
-    const bool full = tile_full(p, q0, kTileQ, k0, kBlockN);
-
-    // 16 q rows at a time: S^T = K Q^T and dP^T = V dO^T for this warp's
-    // 16 keys, then dV += P^T dO and dK += dS^T Q.
-#pragma unroll
-    for (int n = 0; n < kTileQ / 8; n += 2) {
-      float s[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t af[4], bb[4];
-        ldsm_x4(af, kw + kk * 16);
-        ldsm_x4(bb, q_s + n * 8 * LD + kk * 16 + bt_off(LD));
-        mma_bf16(s[0], af, bb);
-        mma_bf16(s[1], af, bb + 2);
-        ldsm_x4(af, vw + kk * 16);
-        ldsm_x4(bb, do_s + n * 8 * LD + kk * 16 + bt_off(LD));
-        mma_bf16(dp[0], af, bb);
-        mma_bf16(dp[1], af, bb + 2);
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<T::kProducerRegs>();
+    const int lane = threadIdx.x;
+    if (lane < 32) {
+      load_key_flags(flags, p, b, k0, T::kN, lane, 32);
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(kv_full, 2 * T::kKV);
+        for (int x = 0; x < T::kBoxes; ++x) {
+          sm90::tma_load_4d(k_s + x * T::kN * 64, &map_k, kv_full, x * 64,
+                            hk, k0, b);
+          sm90::tma_load_4d(v_s + x * T::kN * 64, &map_v, kv_full, x * 64,
+                            hk, k0, b);
+        }
+      } else {
+        sm90::mbar_arrive(kv_full);
       }
-      if (full)
-        dkdv_pds<true>(p, s, dp, flags, key0, k0, q0, n * 8, t, lse_s,
-                       delta_s);
-      else
-        dkdv_pds<false>(p, s, dp, flags, key0, k0, q0, n * 8, t, lse_s,
-                        delta_s);
-      uint32_t pa[4], dsa[4];
-      acc_to_a(pa, s[0], s[1]);
-      acc_to_a(dsa, dp[0], dp[1]);
-#pragma unroll
-      for (int d = 0; d < DT; d += 2) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, do_s + n * 8 * LD + d * 8 + bn_off(LD));
-        mma_bf16(dv[d], pa, bb);
-        mma_bf16(dv[d + 1], pa, bb + 2);
-        ldsm_x4_t(bb, q_s + n * 8 * LD + d * 8 + bn_off(LD));
-        mma_bf16(dk[d], dsa, bb);
-        mma_bf16(dk[d + 1], dsa, bb + 2);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < total; ++it) {
+        const int h = hk * group + it / nq;
+        const int q0 = q_lo + (it % nq) * T::kTQ;
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        float* rows = rows_s + stage * 2 * T::kTQ;
+        const size_t r0 = ((size_t)b * p.heads + h) * S + q0;
+        for (int i = lane; i < T::kTQ; i += 32) {
+          const bool ok = q0 + i < S;
+          rows[i] = ok ? p.lse_in[r0 + i] * kLog2e : 0.f;
+          rows[T::kTQ + i] = ok ? p.delta[r0 + i] : 0.f;
+        }
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::kQ);
+          bf16* q_s = reinterpret_cast<bf16*>(ring + stage * 2 * T::kQ);
+          bf16* do_s = q_s + T::kQ / sizeof(bf16);
+          for (int x = 0; x < T::kBoxes; ++x) {
+            sm90::tma_load_4d(q_s + x * T::kTQ * 64, &map_q, &full[stage],
+                              x * 64, h, q0, b);
+            sm90::tma_load_4d(do_s + x * T::kTQ * 64, &map_do, &full[stage],
+                              x * 64, h, q0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&full[stage]);
+        }
+        next_stage(stage, phase, T::kStages);
       }
     }
-    __syncthreads();  // every read of this stage is done before its refill
-  }
-  cp_async_wait<0>();
+  } else {
+    sm90::setmaxnreg_inc<T::kConsumerRegs>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int t = (lane & 3) * 2;
+    const int kc = k0 + c * kWgRows;  // this consumer's 64 keys
+    const int key0 = kc + warp * 16 + (lane >> 2);
+    float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.f;
+      dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
+    }
+    const bf16* kw = k_s + c * kWgRows * 64;
+    const bf16* vw = v_s + c * kWgRows * 64;
+    sm90::mbar_wait(kv_full, 0);
 
-  const size_t kvoff = (size_t)b * S * ks + hk * D;
-  store_rows<bf16, DT>(static_cast<bf16*>(p.dk) + kvoff, ks, key0, S, dk, t);
-  store_rows<bf16, DT>(static_cast<bf16*>(p.dv) + kvoff, ks, key0, S, dv, t);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < total; ++it) {
+      const int q0 = q_lo + (it % nq) * T::kTQ;
+      sm90::mbar_wait(&full[stage], phase);
+      const bf16* q_s = reinterpret_cast<const bf16*>(ring +
+                                                      stage * 2 * T::kQ);
+      const bf16* do_s = q_s + T::kQ / sizeof(bf16);
+      if (kc < S && tile_live(p, q0, T::kTQ, kc, kWgRows)) {
+        // S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T in registers.
+        float s[NQ][4], dp[NQ][4];
+        sm90::wgmma_fence();
+        scores<D>(s, dp, kw, q_s, vw, do_s, T::kN * 64, T::kTQ * 64);
+        const float* lse_s = rows_s + stage * 2 * T::kTQ;
+        dkdv_pds_tile(p, tile_full(p, q0, T::kTQ, kc, kWgRows), s, dp, flags,
+                      key0, k0, q0, 0, t, lse_s, lse_s + T::kTQ);
+        // dV += P^T dO and dK += dS^T Q: P^T and dS^T from registers,
+        // dO and Q read MN-major.
+        uint32_t pa[NQ / 2][4], dsa[NQ / 2][4];
+#pragma unroll
+        for (int kk = 0; kk < NQ / 2; ++kk) {
+          acc_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+          acc_to_a(dsa[kk], dp[2 * kk], dp[2 * kk + 1]);
+        }
+        sm90::fence_operands(dv);
+        sm90::fence_operands(dk);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NQ / 2; ++kk) {
+          sm90::wgmma_rs_tb(dv, pa[kk],
+                            sm90::desc_mn128(do_s + kk * 16 * 64,
+                                             T::kTQ * kBoxRow));
+          sm90::wgmma_rs_tb(dk, dsa[kk],
+                            sm90::desc_mn128(q_s + kk * 16 * 64,
+                                             T::kTQ * kBoxRow));
+        }
+        sm90::wgmma_commit();
+        sm90::fence_operands(dv);
+        sm90::fence_operands(dk);
+        sm90::wgmma_wait<0>();  // the stage is read; release it below
+        sm90::fence_operands(dv);
+        sm90::fence_operands(dk);
+      }
+      if (lane == 0) sm90::mbar_arrive(&empty[stage]);
+      next_stage(stage, phase, T::kStages);
+    }
+    const size_t ks = (size_t)p.kv_heads * D;
+    const size_t kvoff = (size_t)b * S * ks + hk * D;
+    store_rows<bf16, D / 8>(static_cast<bf16*>(p.dk) + kvoff, ks, key0, S,
+                            dk, t);
+    store_rows<bf16, D / 8>(static_cast<bf16*>(p.dv) + kvoff, ks, key0, S,
+                            dv, t);
+  }
+}
+
+// The bf16 dq (which == kDq) or dk/dv kernel: tensor maps of q, k, v and
+// dout, one block per output tile, heaviest first.
+template <int D>
+cudaError_t launch_bwd_bf16(int which, const Params& p,
+                            cudaStream_t stream) {
+  const bool dq = which == kDq;
+  const uint32_t q_rows = dq ? DqTiles<D>::kM : DkdvTiles<D>::kTQ;
+  const uint32_t k_rows = dq ? DqTiles<D>::kN : DkdvTiles<D>::kN;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!sm90::make_map_bf16_bshd(&map_q, p.q, p.batch, p.seq, p.heads, D,
+                                q_rows) ||
+      !sm90::make_map_bf16_bshd(&map_do, p.dout, p.batch, p.seq, p.heads, D,
+                                q_rows) ||
+      !sm90::make_map_bf16_bshd(&map_k, p.k, p.batch, p.seq, p.kv_heads, D,
+                                k_rows) ||
+      !sm90::make_map_bf16_bshd(&map_v, p.v, p.batch, p.seq, p.kv_heads, D,
+                                k_rows))
+    return cudaErrorInvalidValue;
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                 Params) = dq ? flash_dq_bf16<D> : flash_dkdv_bf16<D>;
+  const size_t smem = dq ? DqTiles<D>::kSmem : DkdvTiles<D>::kSmem;
+  const long long tiles = (p.seq + (dq ? DqTiles<D>::kM : DkdvTiles<D>::kN) -
+                           1) / (dq ? DqTiles<D>::kM : DkdvTiles<D>::kN);
+  const long long blocks =
+      tiles * (dq ? p.heads : p.kv_heads) * (long long)p.batch;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int threads = dq ? DqTiles<D>::kThreads : DkdvTiles<D>::kThreads;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(map_q, map_k, map_v,
+                                                      map_do, p);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 
-enum Which { kForward = 0, kDq = 1, kDkdv = 2 };
-
-// T = float takes the f32 kernels, bf16 the register-fragment kernels.
+// T = float takes the f32 kernels; bf16 the mma.sync forward and the
+// warp-specialised wgmma backward.
 template <typename T, int D>
 cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
   constexpr bool kBf16 = sizeof(T) == 2;
@@ -1152,13 +1452,15 @@ cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
     kernel = kBf16 ? flash_fwd_bf16<D> : flash_fwd_kernel<D>;
     smem = kBf16 ? fwd_smem_bf16<D>() : fwd_smem<D>();
     grid = dim3((p.seq + kBlockM - 1) / kBlockM, p.heads, p.batch);
+  } else if (kBf16) {
+    return launch_bwd_bf16<D>(which, p, stream);
   } else if (which == kDq) {
-    kernel = kBf16 ? flash_dq_bf16<D> : flash_dq_kernel<D>;
-    smem = kBf16 ? dq_smem_bf16<D>() : dq_smem<D>();
+    kernel = flash_dq_kernel<D>;
+    smem = dq_smem<D>();
     grid = dim3((p.seq + kBlockM - 1) / kBlockM, p.heads, p.batch);
   } else {
-    kernel = kBf16 ? flash_dkdv_bf16<D> : flash_dkdv_kernel<D>;
-    smem = kBf16 ? dkdv_smem_bf16<D>() : dkdv_smem<D>();
+    kernel = flash_dkdv_kernel<D>;
+    smem = dkdv_smem<D>();
     grid = dim3((p.seq + kBlockN - 1) / kBlockN, p.kv_heads, p.batch);
   }
   if (smem > 48 * 1024) {

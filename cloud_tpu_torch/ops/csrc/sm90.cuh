@@ -1,15 +1,21 @@
 // Hopper (sm_90a) primitives shared by the port's kernels, in inline PTX:
 // TMA tensor maps, loads and stores, mbarriers, stmatrix, wgmma
-// descriptors and the m64n256k16 bf16 product, and setmaxnreg.
+// descriptors (K-major and MN-major), the bf16 products m64n256k16 and
+// m64n{32,64}k16 with both operands in shared memory, m64n{64,128}k16
+// with A in registers and B transposed, and setmaxnreg.
 //
-// Host side: the tensor map of a row-major bf16 matrix, encoded per call
-// by the driver's cuTensorMapEncodeTiled, reached through the runtime's
-// entry-point query so the library needs no -lcuda.
+// Host side: the tensor maps of a row-major bf16 matrix and of a
+// [B, S, H, D] bf16 tensor, encoded per call by the driver's
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point
+// query so the library needs no -lcuda.
 //
-// Device side: the layout that ties TMA to wgmma here is K-major bf16
-// tiles whose rows are 64 values (128 bytes) long, written by TMA with
-// the 128-byte swizzle, so that 8 rows make one 1024-byte swizzle atom.
-// Every tile starts on a 1024-byte boundary.
+// Device side: the layout that ties TMA to wgmma here is bf16 tiles whose
+// rows are 64 values (128 bytes) long, written by TMA with the 128-byte
+// swizzle, so that 8 rows make one 1024-byte swizzle atom. Every tile
+// starts on a 1024-byte boundary. Read along the rows' 64 values, such a
+// tile is a K-major operand (desc_k128); read across its rows, it is an
+// MN-major one (desc_mn128), which is how one tile in shared memory
+// feeds both a product and its transpose.
 
 #pragma once
 
@@ -63,6 +69,29 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a bf16 tensor [B, S, H, D] (D contiguous; D a multiple of
+// 64) as rank 4 {D, H, S, B}, cut into boxes of 64 values x 1 head x
+// box_rows positions x 1 example: a box lands as box_rows rows of 128
+// bytes, 128-byte swizzled, and rows past S are filled with zeros within
+// the box's own example (a rank-2 map over [B * S, H * D] would read the
+// next example's rows there).
+inline bool make_map_bf16_bshd(CUtensorMap* map, const void* base,
+                               uint64_t batch, uint64_t seq, uint64_t heads,
+                               uint64_t dim, uint32_t box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {dim, heads, seq, batch};
+  const cuuint64_t strides[3] = {dim * 2, heads * dim * 2,
+                                 seq * heads * dim * 2};
+  const cuuint32_t box[4] = {64, 1, box_rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -135,6 +164,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a rank-4 `map` at (c0, c1, c2, c3), innermost first.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // One box of shared memory at src into `map` at (c0, c1), clipped to the
 // matrix's bounds, in this thread's current bulk group.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
@@ -195,6 +237,19 @@ __device__ __forceinline__ uint64_t desc_k128(const void* tile) {
          (1ull << 62);
 }
 
+// Descriptor of an MN-major bf16 operand in the same tiles: the k
+// dimension runs across the rows (128 bytes apart, 8-row atoms 1024 bytes
+// apart: the stride byte offset), M or N along each row's 64 values, and
+// the next 64 values of M or N lie `chunk_bytes` further on (the leading
+// byte offset: the next tile). The k16 slice kk is the descriptor plus
+// 128 * kk (its start moves by 16 rows, 2048 bytes).
+__device__ __forceinline__ uint64_t desc_mn128(const void* tile,
+                                               uint32_t chunk_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(chunk_bytes >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -250,6 +305,104 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
 
 #undef SM90_F16
 #undef SM90_F4
+
+// The same products at n 32, 64 and 128 on accumulators held as [N / 8][4]
+// (d[j][e] is the m64n256 layout's d[4 j + e]: each warp's m16n8 tiles).
+template <int NT>
+__device__ __forceinline__ void fence_operands(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) fence_operand(d[j][e]);
+}
+
+#define SM90_T4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+// d[64 x N] (+)= A[64 x 16] . B[N x 16]^T, both operands K-major in shared
+// memory (desc_k128); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4],
+                                         uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_T4(0), SM90_T4(1), SM90_T4(2), SM90_T4(3)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4],
+                                         uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_T4(0), SM90_T4(1), SM90_T4(2), SM90_T4(3), SM90_T4(4),
+        SM90_T4(5), SM90_T4(6), SM90_T4(7)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N], A in registers and B MN-major in
+// shared memory (desc_mn128; the transpose-B immediate set). Warp w of
+// the warpgroup holds rows 16 w .. 16 w + 15 of A as the m16n8k16 A
+// fragment: a[0] row lane / 4, columns 2 (lane % 4) and + 1; a[1] the
+// same 8 rows down; a[2], a[3] the same 8 columns on. That is the
+// accumulator layout of two adjacent n8 tiles, rounded to bf16 in pairs.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[8][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : SM90_T4(0), SM90_T4(1), SM90_T4(2), SM90_T4(3), SM90_T4(4),
+        SM90_T4(5), SM90_T4(6), SM90_T4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[16][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : SM90_T4(0), SM90_T4(1), SM90_T4(2), SM90_T4(3), SM90_T4(4),
+        SM90_T4(5), SM90_T4(6), SM90_T4(7), SM90_T4(8), SM90_T4(9),
+        SM90_T4(10), SM90_T4(11), SM90_T4(12), SM90_T4(13), SM90_T4(14),
+        SM90_T4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+#undef SM90_T4
 
 // ---------------------------------------------------------------------------
 // Device: register reallocation between warpgroups (all four warps of a

@@ -125,6 +125,17 @@ FLASH_VARIANTS = {
 }
 
 
+# (B, S, H, H_kv): S 80 spans a partial second tile; S 300 spans several
+# q and key tiles and ends inside one, with examples on both sides of each
+# ragged edge; S 40 is below one tile; H 8 over H_kv 1 is a GQA group of 8.
+FLASH_SHAPES = {
+    "s80": (2, 80, 4, 2),
+    "s300": (3, 300, 4, 2),
+    "s40": (2, 40, 4, 2),
+    "gqa8": (2, 80, 8, 1),
+}
+
+
 def _flash_case(dtype, head_dim, variant, batch=2, seq=80, heads=4,
                 kv_heads=2, seed=0):
     rng = np.random.default_rng(seed)
@@ -162,16 +173,19 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
 @pytest.mark.parametrize("variant", sorted(FLASH_VARIANTS))
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_flash_kernels_match_plain_version(dtype, head_dim, variant):
+def test_flash_kernels_match_plain_version(dtype, head_dim, variant, shape):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from cloud_tpu_torch.ops import attention as tatt
 
-    q, k, v, dout, kw = _flash_case(dtype, head_dim, variant)
+    batch, seq, heads, kv_heads = FLASH_SHAPES[shape]
+    q, k, v, dout, kw = _flash_case(dtype, head_dim, variant, batch=batch,
+                                    seq=seq, heads=heads, kv_heads=kv_heads)
     before = dict(tatt.launches)
     out = tatt.flash_attention(q, k, v, **kw)
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
