@@ -28,11 +28,14 @@ then:
    training shape (B 4, S 2048, H 32, H_kv 4, D 64, bf16), and at the
    GPT-2 shape with a key mask that leaves rows with no key, window
    256, softcap 50 (logits scaled to reach the cap), S 1000 and
-   causal=False, and TinyLlama's widths at B 3, S 1000; then times each
-   kernel at the GPT-2 and the TinyLlama shapes beside its bound, the
-   plain version and scaled_dot_product_attention (forward; the whole
-   backward, beside the port's whole backward: delta, dq and dk/dv),
-   which the port never calls;
+   causal=False, TinyLlama's widths at B 3, S 1000, and Gemma-2-2B's
+   attention (B 2, S 2048, H 8, H_kv 4, head_dim 256, softcap 50,
+   sm_scale 1/16; without and with window 512); then times each kernel
+   at the GPT-2, the TinyLlama and the Gemma-2 shapes beside its bound,
+   the plain version and scaled_dot_product_attention (forward; the
+   whole backward, beside the port's whole backward: delta, dq and
+   dk/dv), which the port never calls, and the host time of each
+   wrapper's launch;
 4. holds the fused RMSNorm kernels (with and without the residual add)
    against `rmsnorm_residual_reference` at rows 8192 and 8191 x D 2048,
    bf16 and f32 (h bit for bit, normed element by element), and times
@@ -67,7 +70,8 @@ then:
    the one-step check (batch 1) against attention, norm and MLP all by
    their plain versions; every step launching each flash and MLP kernel
    once per layer and the norm kernels 2 x layers + 1 times; the loss
-   gate; step timing and the top kernels; `evaluate` and `predict`;
+   gate (`llama_loss_gate`); step timing and the top kernels;
+   `evaluate` and `predict`;
 8. prints the kernel table as one JSON line (one row per kernel and
    path that launches it, with that path's launches and the times at
    its shape), the card line, and the contract line
@@ -76,6 +80,13 @@ then:
 Any failure raises and exits non-zero. Without a CUDA card, or without
 the rest of the repository beside it, it exits non-zero before
 printing any result. Details go to build/chip_smoke.json.
+
+    python3 chip_smoke.py --llama-gate TREE SEEDS OUT
+
+runs phase 7's fit alone on the port found in TREE (this checkout, or
+an earlier commit unpacked there with `git archive`), once per data
+seed in the comma-separated SEEDS, and writes each seed's losses and
+gate to OUT (JSON).
 """
 
 import json
@@ -481,7 +492,8 @@ def serve(model, ref_model, n_requests, n_sampled, kv_dtype, seed):
 def tick_breakdown(model):
     """One engine with all 8 slots decoding (128-token prompts): the
     host wall time of 20 ticks, and under torch.profiler the device time
-    of all kernels and of the paged-attention kernel. Returns a dict;
+    of all kernels and of the paged-attention kernels (the per-chunk
+    kernel and the merge). Returns a dict;
     device figures are None when the profiler reports no device time."""
     import torch
     from cloud_tpu_torch.serving.engine import DecodeEngine
@@ -512,7 +524,7 @@ def tick_breakdown(model):
             continue
         dev = evt.time_range.elapsed_us()
         device_us += dev
-        if "paged_attention_kernel" in evt.name:
+        if "paged_attention_" in evt.name:
             attn_us += dev
     out = {"tick_ms": wall_ms, "device_ms_per_tick": None,
            "attention_ms_per_tick": None, "device_busy_share": None}
@@ -552,7 +564,18 @@ FLASH_CASES = (
     # partial, and a q tile's rows past S border the next example's rows.
     ("tinyllama_s1000", "bf16", (3, 1000, 32, 4, 64), dict(causal=True),
      None, 1),
+    # Gemma-2-2B's attention (the public google/gemma-2-2b config.json: 8
+    # heads over 4 KV heads, head_dim 256, attn_logit_softcapping 50,
+    # query_pre_attn_scalar 256, so sm_scale 1/16; sliding window 4096,
+    # which does nothing at S 2048, so window 512 stands in for it), at B 2,
+    # S 2048. q x 20: logits of std 20, so the cap bends them.
+    ("gemma2_bf16", "bf16", (2, 2048, 8, 4, 256),
+     dict(causal=True, sm_scale=1 / 16, logit_softcap=50.0), None, 20),
+    ("gemma2_window_bf16", "bf16", (2, 2048, 8, 4, 256),
+     dict(causal=True, sm_scale=1 / 16, logit_softcap=50.0, window=512),
+     None, 20),
 )
+GEMMA2_ATTENTION = (2, 2048, 8, 4, 256)
 # The case at each training path's shape; its errors go into that path's
 # rows of the kernel table.
 FLASH_PATH_CASES = {"gpt2_bf16": "gpt2_train",
@@ -579,7 +602,8 @@ def flash_inputs(rng, dtype, shape, mask_kind, device, q_scale=1):
     return q, k, v, dout, mask
 
 
-def reference_lse(q, k, mask, causal=True, window=None, logit_softcap=None):
+def reference_lse(q, k, mask, causal=True, window=None, logit_softcap=None,
+                  sm_scale=None):
     """logsumexp of the plain version's masked f32 logits, [B, H, S];
     -1e30 on rows with no allowed key."""
     import torch
@@ -587,7 +611,7 @@ def reference_lse(q, k, mask, causal=True, window=None, logit_softcap=None):
 
     k = tatt.repeat_kv(k, q.shape[2])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    logits = logits / np.sqrt(q.shape[-1])
+    logits = logits * (sm_scale or 1 / np.sqrt(q.shape[-1]))
     if logit_softcap:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
     seq = q.shape[1]
@@ -727,12 +751,29 @@ def check_flash_kernels(device):
     return path_err, details
 
 
+def host_us(fn, n=200):
+    """Host time per call of `fn` in microseconds: `n` calls back to back
+    on the host clock, without waiting for the device (what the wrapper
+    costs the Python thread that launches it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
 def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     """Each kernel at a training shape (B, S, H, H_kv, D; bf16, causal;
     GPT-2's by default) by CUDA graph replays, beside its bound, the
     plain version (the forward by graph replays; the backward, which
     computes dq, dk and dv together, by `backward_ms`) and
-    scaled_dot_product_attention (the same; enable_gqa for H_kv < H).
+    scaled_dot_product_attention (the same; enable_gqa for H_kv < H),
+    and the host time of each wrapper's launch (`host_us`).
     Row "backward" holds the whole backward of the port (`_delta`, dq,
     dk/dv through `flash_attention`'s autograd), SDPA and the plain
     version, all by `backward_ms`, and `_delta` alone."""
@@ -749,16 +790,27 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     config = (True, 1.0 / np.sqrt(head_dim), 0, 0.0)
     out, lse = tatt._launch_forward(q, k, v, None, config)
     delta = tatt._delta(dout, out)
-    rows = {
-        "flash_attention_fwd": {"ms": timed_ms(
-            lambda: tatt._launch_forward(q, k, v, None, config))},
-        "flash_attention_dq": {"ms": timed_ms(
-            lambda: tatt._launch_dq(q, k, v, None, dout, lse, delta,
-                                    config))},
-        "flash_attention_dkdv": {"ms": timed_ms(
-            lambda: tatt._launch_dkdv(q, k, v, None, dout, lse, delta,
-                                      config))},
+    calls = {
+        "flash_attention_fwd": lambda: tatt._launch_forward(q, k, v, None,
+                                                            config),
+        "flash_attention_dq": lambda: tatt._launch_dq(q, k, v, None, dout,
+                                                      lse, delta, config),
+        "flash_attention_dkdv": lambda: tatt._launch_dkdv(
+            q, k, v, None, dout, lse, delta, config),
     }
+    rows = {name: {"ms": timed_ms(call), "host_us": host_us(call)}
+            for name, call in calls.items()}
+    # The forward's C entry point alone, on arguments built once: what the
+    # tensor-map encodes and the launch cost the host, apart from the
+    # Python wrapper's checks, allocations and stream lookup.
+    fn = tatt._library(q.dtype).flash_attention_forward
+    out_c, lse_c = torch.empty_like(out), torch.empty_like(lse)
+    args = (tatt._KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None, out_c.data_ptr(), lse_c.data_ptr(),
+            *tatt._scalars(q, k, config),
+            torch.cuda.current_stream().cuda_stream)
+    rows["flash_attention_fwd"]["c_call_host_us"] = host_us(
+        lambda: fn(*args))
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     qt, kt, vt = (x.transpose(1, 2) for x in leaves)
 
@@ -801,9 +853,14 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
         row["bytes"] = cost[part]["bytes_moved"]
         log("kernel {} (B {}, S {}, H {}, H_kv {}, D {}, bf16, causal): "
             "{:.4f} ms (bound {:.4f} ms by {}; {:.1f} TFLOP/s), plain {:.4f} "
-            "ms, library {:.4f} ms".format(
+            "ms, library {:.4f} ms; host {:.1f} us per launch".format(
                 name, *shape, row["ms"], row["bound_ms"], row["bound_by"],
-                row["flops"] / row["ms"] / 1e9, plain, lib))
+                row["flops"] / row["ms"] / 1e9, plain, lib,
+                row["host_us"]))
+    log("host per forward launch: {:.1f} us through the wrapper, {:.1f} us "
+        "for the C entry point alone (tensor-map encodes and the launch)"
+        .format(rows["flash_attention_fwd"]["host_us"],
+                rows["flash_attention_fwd"]["c_call_host_us"]))
     log("plain backward (dq+dk+dv) {:.4f} ms ({:g} kernels per call); sdpa "
         "backward {:.4f} ms ({:g} kernels per call); the port's backward "
         "(delta + dq + dk/dv) {:.4f} ms ({:g} kernels per call; delta alone "
@@ -811,7 +868,7 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
         "backward alone under the profiler".format(
             plain_b, plain_kernels, lib_b, lib_kernels, port_b, port_kernels,
             rows["backward"]["delta_ms"], port_b / lib_b))
-    del q, k, v, dout, out, lse, delta, leaves
+    del q, k, v, dout, out, lse, delta, leaves, out_c, lse_c
     torch.cuda.empty_cache()
     return rows
 
@@ -848,6 +905,47 @@ def next_token_entropy(x, y):
     # H(Y | X) = H(X, Y) - H(X).
     return float(-(joint / total * np.log(joint / total)).sum()
                  + (marginal / total * np.log(marginal / total)).sum())
+
+
+def cycle_level(x, y):
+    """Mean loss in nats of a model that knows which permutation cycles
+    the sequence's two chains run on but not where on them it stands:
+    the mean over positions of ln |cycle of the next token|. Each token
+    of a chain is the image of the token two places before it under one
+    permutation of the alphabet, read here from the data."""
+    tokens = np.concatenate([x[:, :1], y], axis=1)
+    step2 = dict(zip(tokens[:, :-2].ravel().tolist(),
+                     tokens[:, 2:].ravel().tolist()))
+    size = {}
+    for start in step2:
+        if start in size:
+            continue
+        cycle, tok = [start], step2[start]
+        while tok != start:
+            cycle.append(tok)
+            tok = step2[tok]
+        for tok in cycle:
+            size[tok] = len(cycle)
+    sizes = np.vectorize(size.__getitem__)(y)
+    return float(np.log(sizes).mean())
+
+
+def llama_loss_gate(entropy, cycle):
+    """The TinyLlama fit's gate on its last epoch's loss: halfway between
+    the entropy of the next token given the current one and the cycle
+    level (`cycle_level`).
+
+    No model without working attention gets below that entropy: each
+    position then sees only its own token and its position, and every
+    position of the chains is alike. The first thing attention gives is
+    the bag of earlier tokens, which names the two cycles, and with them
+    the loss falls to the cycle level, a plateau; learning where on the
+    cycle each chain stands takes it on towards 0, and when that starts
+    varies with the rounding of the bf16 gradients. The gate sits below
+    what a model without attention can reach and above the plateau, so
+    it shows that information came through attention whether or not the
+    plateau ends within the fit."""
+    return 0.5 * (entropy + cycle)
 
 
 def matmul_params(model):
@@ -1361,6 +1459,8 @@ LLAMA_BATCH, LLAMA_SEQ, LLAMA_EPOCHS, LLAMA_STEPS = 4, 2048, 12, 20
 # nats); at 5e-5 the model leaves it after about 120 steps and learns
 # the chains, which 240 steps complete (PERF.md, Findings).
 LLAMA_LR = 5e-5
+# The data seed of phase 7's fit (`--llama-gate` runs others).
+LLAMA_SEED = 6
 
 
 def plain_kernels_swapped():
@@ -1497,32 +1597,29 @@ def llama_one_step_check(model, x, y):
             "plain_run_peak_bytes": peak}
 
 
-def train_llama(device):
-    """Phase 7: TinyLlama-1.1B through `Trainer.fit`; returns (launches
-    in fit, summary dict)."""
+def llama_data(seed, vocab):
+    """Phase 7's data from `seed`: LLAMA_STEPS batches to train on (x,
+    y) and two to validate (x_val, y_val), with the entropy of the next
+    token given the current one, the cycle level and the loss gate read
+    from the training part."""
+    n_train = LLAMA_BATCH * LLAMA_STEPS
+    x, y = training_data(seed, n_train + 2 * LLAMA_BATCH, vocab, LLAMA_SEQ)
+    out = {"x": x[:n_train], "y": y[:n_train], "x_val": x[n_train:],
+           "y_val": y[n_train:]}
+    out["entropy"] = next_token_entropy(out["x"], out["y"])
+    out["cycle"] = cycle_level(out["x"], out["y"])
+    out["gate"] = llama_loss_gate(out["entropy"], out["cycle"])
+    return out
+
+
+def llama_fit(model, x, y):
+    """Phase 7's fit of (x, y): AdamW, warmup-cosine to LLAMA_LR over
+    LLAMA_EPOCHS epochs, with the launches counted from 0 around it and
+    held to layers x steps. Returns (trainer, history, launches, fit
+    seconds)."""
     import torch
-    from cloud_tpu_torch.models import TINYLLAMA_1_1B, LlamaLM
-    from cloud_tpu_torch.ops import attention as tatt
     from cloud_tpu_torch.training import Trainer, make_optimizer
     from cloud_tpu_torch.training.schedules import warmup_cosine
-
-    torch.cuda.empty_cache()
-    t0 = time.monotonic()
-    model = LlamaLM(compute_dtype=torch.bfloat16, device=device, seed=0,
-                    **TINYLLAMA_1_1B)
-    n_total = sum(p.numel() for p in model.parameters())
-    log("llama: TinyLlama-1.1B ({:,} parameters) built in {:.1f} s".format(
-        n_total, time.monotonic() - t0))
-    n_train = LLAMA_BATCH * LLAMA_STEPS
-    x, y = training_data(6, n_train + 2 * LLAMA_BATCH, model.vocab_size,
-                         LLAMA_SEQ)
-    x_val, y_val = x[n_train:], y[n_train:]
-    x, y = x[:n_train], y[:n_train]
-    entropy = next_token_entropy(x, y)
-    check = llama_one_step_check(model,
-                                 torch.as_tensor(x[:1], device=device),
-                                 torch.as_tensor(y[:1], device=device))
-    torch.cuda.empty_cache()
 
     total = LLAMA_EPOCHS * LLAMA_STEPS
     trainer = Trainer(model, optimizer=make_optimizer(
@@ -1540,18 +1637,52 @@ def train_llama(device):
     if steps != total or launches != want:
         raise AssertionError("llama fit launched {} over {} steps; expected "
                              "{}".format(launches, steps, want))
+    return trainer, history, launches, fit_s
+
+
+def llama_gate_passes(losses, gate):
+    """Every epoch's loss finite, the first above the gate and the last
+    below it."""
+    return bool(all(np.isfinite(losses)) and losses[-1] < gate < losses[0])
+
+
+def train_llama(device):
+    """Phase 7: TinyLlama-1.1B through `Trainer.fit`; returns (launches
+    in fit, summary dict)."""
+    import torch
+    from cloud_tpu_torch.models import TINYLLAMA_1_1B, LlamaLM
+    from cloud_tpu_torch.ops import attention as tatt
+
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    model = LlamaLM(compute_dtype=torch.bfloat16, device=device, seed=0,
+                    **TINYLLAMA_1_1B)
+    n_total = sum(p.numel() for p in model.parameters())
+    log("llama: TinyLlama-1.1B ({:,} parameters) built in {:.1f} s".format(
+        n_total, time.monotonic() - t0))
+    data = llama_data(LLAMA_SEED, model.vocab_size)
+    x, y, x_val, y_val = data["x"], data["y"], data["x_val"], data["y_val"]
+    entropy, cycle, gate = data["entropy"], data["cycle"], data["gate"]
+    check = llama_one_step_check(model,
+                                 torch.as_tensor(x[:1], device=device),
+                                 torch.as_tensor(y[:1], device=device))
+    torch.cuda.empty_cache()
+
+    trainer, history, launches, fit_s = llama_fit(model, x, y)
+    steps = trainer.state.step
+    n_train = len(x)
     losses = history["loss"]
     log("llama fit: {} steps in {:.2f} s, history {}; entropy of the next "
-        "token given the current one {:.4f} nats, gate {} x that; peak "
-        "memory {:.1f} GB".format(steps, fit_s, json.dumps(history),
-                                  entropy, LOSS_FALL,
-                                  torch.cuda.max_memory_allocated() / 1e9))
-    if not (all(np.isfinite(losses))
-            and losses[-1] < LOSS_FALL * entropy < losses[0]):
+        "token given the current one {:.4f} nats, cycle level {:.4f}, gate "
+        "{:.4f} (halfway); peak memory {:.1f} GB".format(
+            steps, fit_s, json.dumps(history), entropy, cycle, gate,
+            torch.cuda.max_memory_allocated() / 1e9))
+    if not llama_gate_passes(losses, gate):
         raise AssertionError(
-            "llama: the last epoch's loss {} is not below {} x {:.4f} (the "
-            "entropy of the next token given the current one)".format(
-                losses[-1], LOSS_FALL, entropy))
+            "llama: the last epoch's loss {} is not below the gate {:.4f} "
+            "(halfway between the entropy of the next token given the "
+            "current one, {:.4f}, and the cycle level, {:.4f})".format(
+                losses[-1], gate, entropy, cycle))
 
     batches = [(x[i:i + LLAMA_BATCH], y[i:i + LLAMA_BATCH])
                for i in range(0, n_train, LLAMA_BATCH)]
@@ -1573,7 +1704,8 @@ def train_llama(device):
         "model": "TinyLlama-1.1B bf16", "parameters": n_total,
         "batch": LLAMA_BATCH, "seq": LLAMA_SEQ, "steps": steps,
         "history": history, "peak_lr": LLAMA_LR,
-        "next_token_entropy_given_current": entropy, "fit_s": fit_s,
+        "next_token_entropy_given_current": entropy, "cycle_level": cycle,
+        "loss_gate": gate, "fit_s": fit_s,
         "launches": launches, "one_step_check": check,
         "step_p50_s": step_s, "step_times_s": times,
         "tokens_per_s": tokens / step_s, "matmul_params": n_params,
@@ -1598,10 +1730,59 @@ def train_llama(device):
     return launches, summary
 
 
+def llama_gate_seeds(seeds, out_path):
+    """Phase 7's fit alone (`llama_data`, `llama_fit`; no other check),
+    once per data seed, on the `cloud_tpu_torch` that is first on
+    sys.path: per seed the loss of every epoch, the entropy of the next
+    token given the current one, the cycle level, the gate, and the
+    first epoch whose loss lies half a nat below the cycle level (the
+    plateau left). Writes them as JSON to `out_path`."""
+    import torch
+    from cloud_tpu_torch.models import TINYLLAMA_1_1B, LlamaLM
+    from cloud_tpu_torch.ops import _build
+
+    _build.build(_build.sources())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    for seed in seeds:
+        torch.cuda.empty_cache()
+        model = LlamaLM(compute_dtype=torch.bfloat16,
+                        device=torch.device("cuda"), seed=0,
+                        **TINYLLAMA_1_1B)
+        data = llama_data(seed, model.vocab_size)
+        trainer, history, _, fit_s = llama_fit(model, data["x"], data["y"])
+        losses, cycle = history["loss"], data["cycle"]
+        left = [i + 1 for i, v in enumerate(losses) if v < cycle - 0.5]
+        run = {"seed": seed, "losses": losses, "entropy": data["entropy"],
+               "cycle_level": cycle, "gate": data["gate"],
+               "passes": llama_gate_passes(losses, data["gate"]),
+               "plateau_left_epoch": left[0] if left else None,
+               "fit_s": fit_s}
+        log("llama gate seed {}: {}".format(seed, json.dumps(run)))
+        runs.append(run)
+        del trainer, model
+    with open(out_path, "w") as f:
+        json.dump({"nvidia_smi": nvidia_smi_line(), "runs": runs}, f,
+                  indent=1)
+    return 0
+
+
 def main():
     t_start = time.monotonic()
     import torch
 
+    if "--llama-gate" in sys.argv:
+        # python3 chip_smoke.py --llama-gate TREE SEEDS OUT: phase 7's fit
+        # on the port in TREE (a checkout, e.g. an earlier commit unpacked
+        # by `git archive`) over the comma-separated data seeds.
+        tree, seeds, out_path = sys.argv[sys.argv.index("--llama-gate")
+                                         + 1:][:3]
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device available", file=sys.stderr)
+            return 2
+        sys.path.insert(0, os.path.abspath(tree))
+        return llama_gate_seeds([int(s) for s in seeds.split(",")],
+                                out_path)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1618,7 +1799,10 @@ def main():
     t_build = time.monotonic()
     _build.build(_build.sources())
     build_s = time.monotonic() - t_build
-    log("built {} in {:.1f} s".format(_build.sources(), build_s))
+    log("built {} in {:.1f} s ({})".format(
+        _build.sources(), build_s, ", ".join(
+            "{} {:.1f} s".format(n, t)
+            for n, t in sorted(_build.build_seconds.items()))))
     for name, report in _build.build_logs.items():
         for line in report.splitlines():
             if ("registers" in line or "spill" in line
@@ -1640,6 +1824,7 @@ def main():
     flash_rows = time_flash_kernels(device)
     flash_rows_llama = time_flash_kernels(device, (LLAMA_BATCH, LLAMA_SEQ,
                                                    32, 4, 64))
+    flash_rows_gemma = time_flash_kernels(device, GEMMA2_ATTENTION)
     norm_rows, norm_details = check_norm_kernels(device)
     mlp_rows, mlp_details = check_mlp_kernels(device)
 
@@ -1708,6 +1893,7 @@ def main():
                    "flash_checks": flash_details,
                    "flash_timing": flash_rows,
                    "flash_timing_tinyllama": flash_rows_llama,
+                   "flash_timing_gemma2": flash_rows_gemma,
                    "norm_checks": norm_details, "mlp_checks": mlp_details,
                    "training": training, "llama_training": llama_training,
                    "build_logs": _build.build_logs}, f,

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -29,6 +30,8 @@ _libs = {}
 #: ptxas report (registers, shared memory, spills) of each source built
 #: by this process, by source name.
 build_logs = {}
+#: Seconds each of those builds took (they run side by side).
+build_seconds = {}
 
 
 def nvcc_path():
@@ -80,10 +83,21 @@ def build(names):
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, path)
+    start = time.monotonic()
+
+    def wait(name, proc):
+        build_logs[name] = proc.communicate()[0]
+        build_seconds[name] = time.monotonic() - start
+
+    waiters = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for waiter in waiters:
+        waiter.start()
+    for waiter in waiters:
+        waiter.join()
     failed = []
     for name, (proc, tmp, path) in procs.items():
-        output, _ = proc.communicate()
-        build_logs[name] = output
+        output = build_logs[name]
         if proc.returncode != 0:
             failed.append("{} (exit {}):\n{}".format(name, proc.returncode,
                                                      output))
@@ -113,5 +127,5 @@ def check(err, what):
         raise RuntimeError("{} failed: cudaError_t {}".format(what, err))
 
 
-__all__ = ["BUILD_DIR", "build", "build_logs", "check", "headers", "load",
-           "library_path", "sources"]
+__all__ = ["BUILD_DIR", "build", "build_logs", "build_seconds", "check",
+           "headers", "load", "library_path", "sources"]

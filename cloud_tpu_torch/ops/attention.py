@@ -20,14 +20,18 @@ Gemma2-style `logit_softcap` (cap * tanh(s / cap) after the scale,
 before masking). A query row with no allowed key comes out as zeros and
 passes no gradient, in both versions.
 
-The kernels take bf16 or f32 q/k/v (all one type) with head_dim 64 or
-128, accumulate in f32 and return the input type; anything else raises.
+The kernels take bf16 or f32 q/k/v (all one type) with head_dim 64, 128
+or 256, accumulate in f32 and return the input type; anything else
+raises. An operand (q, k, v or the backward's dO) that is not contiguous
+or not 16-byte aligned goes to the kernels as a contiguous copy.
 """
 
 import ctypes
 import math
 
 import torch
+
+from cloud_tpu_torch.ops._layout import dense
 
 _NEG_INF = -1e30
 
@@ -37,7 +41,7 @@ launches = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkdv": 0}
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launches():
@@ -163,10 +167,14 @@ def mha_backward_reference(q, k, v, dout, delta, causal=True,
 # ---------------------------------------------------------------------------
 
 
-def _library():
+def _library(dtype):
+    """The kernels' library for q/k/v of `dtype`: bf16 in
+    `flash_attention`, f32 in `flash_attention_f32` (two sources, so that
+    they build in parallel); both export the same three functions."""
     from cloud_tpu_torch.ops import _build
 
-    lib = _build.load("flash_attention")
+    lib = _build.load("flash_attention" if dtype == torch.bfloat16
+                      else "flash_attention_f32")
     ints = [ctypes.c_int] * 7        # batch seq heads kv_heads D causal win
     tail = [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     specs = {
@@ -185,7 +193,7 @@ def _library():
 
 def _check_kernel_operands(q, k, v, mask):
     """What the CUDA kernels take: one CUDA device, one dtype (f32 or
-    bf16), head_dim 64 or 128, contiguous 16-byte aligned tensors."""
+    bf16), head_dim 64, 128 or 256."""
     for t in (k, v) + (() if mask is None else (mask,)):
         if t.device != q.device:
             raise ValueError("flash_attention operands must share one "
@@ -203,10 +211,6 @@ def _check_kernel_operands(q, k, v, mask):
         raise ValueError("q [B, S, H, D] and k/v [B, S, H_kv, D] must "
                          "agree on B, S and D; got {} and {}.".format(
                              tuple(q.shape), tuple(k.shape)))
-    for t in (q, k, v):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash_attention operands must be contiguous "
-                             "and 16-byte aligned.")
 
 
 def _scalars(q, k, config):
@@ -229,7 +233,7 @@ def _launch_forward(q, k, v, mask, config):
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32,
                       device=q.device)
-    fn = _library().flash_attention_forward
+    fn = _library(q.dtype).flash_attention_forward
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -244,7 +248,7 @@ def _launch_dq(q, k, v, mask, dout, lse, delta, config):
     from cloud_tpu_torch.ops import _build
 
     dq = torch.empty_like(q)
-    fn = _library().flash_attention_backward_dq
+    fn = _library(q.dtype).flash_attention_backward_dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -261,7 +265,7 @@ def _launch_dkdv(q, k, v, mask, dout, lse, delta, config):
 
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _library().flash_attention_backward_dkdv
+    fn = _library(q.dtype).flash_attention_backward_dkdv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -296,7 +300,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mask, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = dense(dout)
         delta = _delta(dout, out)
         dq = _launch_dq(q, k, v, mask, dout, lse, delta, ctx.config)
         dk, dv = _launch_dkdv(q, k, v, mask, dout, lse, delta, ctx.config)
@@ -333,6 +337,7 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, mask=None,
     if mask is not None:
         mask = mask.to(torch.bool).contiguous()
     _check_kernel_operands(q, k, v, mask)
+    q, k, v = dense(q), dense(k), dense(v)
     config = (bool(causal), float(sm_scale), int(window or 0),
               float(logit_softcap or 0.0))
     return _FlashAttention.apply(q, k, v, mask, config)

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's kernels, in inline PTX:
-// TMA tensor maps, loads and stores, mbarriers, stmatrix, wgmma
-// descriptors (K-major and MN-major), the bf16 products m64n256k16 and
-// m64n{32,64}k16 with both operands in shared memory, m64n{64,128}k16
-// with A in registers and B transposed, and setmaxnreg.
+// TMA tensor maps, loads and stores, 1-D bulk copies, mbarriers, stmatrix,
+// wgmma descriptors (K-major and MN-major), the bf16 products m64n256k16
+// and m64n{32,64,128}k16 with both operands in shared memory,
+// m64n{64,128,256}k16 with A in registers and B transposed, and
+// setmaxnreg.
 //
 // Host side: the tensor maps of a row-major bf16 matrix and of a
 // [B, S, H, D] bf16 tensor, encoded per call by the driver's
@@ -177,6 +178,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global memory at src into shared memory
+// at dst, both 16-byte aligned, as one bulk copy (no tensor map);
+// completion counts its bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // One box of shared memory at src into `map` at (c0, c1), clipped to the
 // matrix's bounds, in this thread's current bulk group.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
@@ -306,7 +319,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
 #undef SM90_F16
 #undef SM90_F4
 
-// The same products at n 32, 64 and 128 on accumulators held as [N / 8][4]
+// The same products at n 32 to 256 on accumulators held as [N / 8][4]
 // (d[j][e] is the m64n256 layout's d[4 j + e]: each warp's m16n8 tiles).
 template <int NT>
 __device__ __forceinline__ void fence_operands(float (&d)[NT][4]) {
@@ -351,6 +364,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4],
       "}\n"
       : SM90_T4(0), SM90_T4(1), SM90_T4(2), SM90_T4(3), SM90_T4(4),
         SM90_T4(5), SM90_T4(6), SM90_T4(7)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4],
+                                         uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_T4(0), SM90_T4(1), SM90_T4(2), SM90_T4(3), SM90_T4(4),
+        SM90_T4(5), SM90_T4(6), SM90_T4(7), SM90_T4(8), SM90_T4(9),
+        SM90_T4(10), SM90_T4(11), SM90_T4(12), SM90_T4(13), SM90_T4(14),
+        SM90_T4(15)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -401,6 +436,36 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, "
+      "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : SM90_T4(0), SM90_T4(1), SM90_T4(2), SM90_T4(3), SM90_T4(4),
+        SM90_T4(5), SM90_T4(6), SM90_T4(7), SM90_T4(8), SM90_T4(9),
+        SM90_T4(10), SM90_T4(11), SM90_T4(12), SM90_T4(13), SM90_T4(14),
+        SM90_T4(15), SM90_T4(16), SM90_T4(17), SM90_T4(18), SM90_T4(19),
+        SM90_T4(20), SM90_T4(21), SM90_T4(22), SM90_T4(23), SM90_T4(24),
+        SM90_T4(25), SM90_T4(26), SM90_T4(27), SM90_T4(28), SM90_T4(29),
+        SM90_T4(30), SM90_T4(31)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 #undef SM90_T4
 

@@ -29,15 +29,18 @@ The backward is plain PyTorch in f32 on both (`_swiglu_bwd`, the JAX
 custom-vjp's math: the products recomputed from the saved x and
 weights, f32 matrix products throughout).
 
-The kernels take compute dtypes f32 or bf16, widths D, d_ff and D_out
-that are multiples of 8, and operands that TMA can address (16-byte
-aligned base, rows a multiple of 16 bytes apart); anything else raises.
+The kernels take compute dtypes f32 or bf16 and widths D, d_ff and D_out
+that are multiples of 8 (TMA reads rows a multiple of 16 bytes apart);
+anything else raises. An operand that is not contiguous or not 16-byte
+aligned goes to the kernels as a contiguous copy (`_layout.dense`).
 """
 
 import ctypes
 
 import torch
 import torch.nn.functional as F
+
+from cloud_tpu_torch.ops._layout import dense
 
 #: Launches of each CUDA kernel since the last reset, counted where the
 #: wrapper launches it.
@@ -162,8 +165,9 @@ def _check_tma_addressable(t, name):
 
 def _check_kernel_operands(x, w_gate, w_up, w_down, compute_dtype):
     """What the kernels take: one CUDA device, compute dtype f32 or bf16,
-    widths that are multiples of 8, operands TMA can address (x [rows,
-    D] and the weights as the kernels get them)."""
+    widths that are multiples of 8 (TMA reads rows a multiple of 16
+    bytes apart). Layout is not checked: the operands reach the kernels
+    through `dense`."""
     for t in (w_gate, w_up, w_down):
         if t.device != x.device:
             raise ValueError("fused_swiglu operands must share one device; "
@@ -175,18 +179,16 @@ def _check_kernel_operands(x, w_gate, w_up, w_down, compute_dtype):
     if any(w % 8 for w in widths):
         raise ValueError("the CUDA kernels take D, d_ff and D_out that are "
                          "multiples of 8; got {}.".format(widths))
-    for t, name in ((x, "x"), (w_gate, "w_gate"), (w_up, "w_up"),
-                    (w_down, "w_down")):
-        _check_tma_addressable(t, name)
 
 
 def launch_gate_up(x, w_gate, w_up, activation):
     """Kernel (a): a [rows, d_ff] = act(x Wg^T) * (x Wu^T) at the
     reference's rounding points; x [rows, D], weights [d_ff, D], all
-    contiguous in one dtype and 16-byte aligned (the launch fails on
-    anything else)."""
+    in one dtype that TMA can address (raises ValueError otherwise)."""
     from cloud_tpu_torch.ops import _build
 
+    for t, name in ((x, "x"), (w_gate, "w_gate"), (w_up, "w_up")):
+        _check_tma_addressable(t, name)
     rows, features = x.shape
     d_ff = w_gate.shape[0]
     a = torch.empty((rows, d_ff), dtype=x.dtype, device=x.device)
@@ -203,9 +205,12 @@ def launch_gate_up(x, w_gate, w_up, activation):
 
 def launch_down(a, w_down):
     """Kernel (b): y [rows, D_out] = a Wd^T; a [rows, d_ff], w_down
-    [D_out, d_ff], contiguous in one dtype and 16-byte aligned."""
+    [D_out, d_ff], in one dtype that TMA can address (raises ValueError
+    otherwise)."""
     from cloud_tpu_torch.ops import _build
 
+    _check_tma_addressable(a, "a")
+    _check_tma_addressable(w_down, "w_down")
     rows, d_ff = a.shape
     d_out = w_down.shape[0]
     y = torch.empty((rows, d_out), dtype=a.dtype, device=a.device)
@@ -286,13 +291,14 @@ def fused_swiglu(x, w_gate, w_up, w_down, activation="silu",
     if compute_dtype is None:
         compute_dtype = torch.promote_types(x.dtype, w_gate.dtype)
     lead = x.shape[:-1]
-    x2 = x.to(compute_dtype).reshape(-1, features).contiguous()
-    w_gate, w_up, w_down = (w.to(compute_dtype).contiguous()
+    x2 = x.to(compute_dtype).reshape(-1, features)
+    w_gate, w_up, w_down = (w.to(compute_dtype)
                             for w in (w_gate, w_up, w_down))
     if x.device.type == "cuda":
         _check_kernel_operands(x2, w_gate, w_up, w_down, compute_dtype)
     elif any(w.device.type != "cpu" for w in (w_gate, w_up, w_down)):
         raise ValueError("fused_swiglu operands must share one device.")
+    x2, w_gate, w_up, w_down = (dense(t) for t in (x2, w_gate, w_up, w_down))
     y = _FusedSwiGLU.apply(x2, w_gate, w_up, w_down, activation)
     return y.reshape(lead + (w_down.shape[0],))
 

@@ -10,10 +10,13 @@ addressed through a per-slot page table. The port of
 
 - CPU tensors take `paged_attention_reference`, the plain PyTorch
   version (a gather of the dense per-slot view, then masked softmax).
-- CUDA tensors launch the hand-written kernel in
+- CUDA tensors launch the hand-written kernels in
   `csrc/paged_attention.cu` (fp pages, or int8 pages with per-page
-  per-head f32 scales), or raise. There is no switch that sends a CUDA
-  tensor to the plain version.
+  per-head f32 scales; a slot's live pages split over several blocks,
+  then their partial results merged), or raise. There is no switch that
+  sends a CUDA tensor to the plain version. An operand that is not
+  contiguous or not 16-byte aligned goes to the kernels as a contiguous
+  copy.
 
 Masking is the caller's `allowed [slots, seq, cache_len]`. A query row
 with no allowed key (an evicted slot, a padded row) comes out as exact
@@ -28,9 +31,12 @@ dequantizes to zeros.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
+
+from cloud_tpu_torch.ops._layout import dense
 
 _NEG_INF = -1e30
 
@@ -152,18 +158,46 @@ def _library():
     lib = _build.load("paged_attention")
     fn = lib.paged_attention_forward
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
+#: Bytes of the kernel's ring of K and V pages (two stages), kept at about
+#: 96 KB so that two blocks share an SM.
+_RING_BYTES = 96 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan(slots, heads, head_dim, page_size, pages_per_slot, item, sms):
+    """How the kernel splits a call (flash-decoding): (group, chunks).
+    A block computes `group` heads (every head, unless two stages of K
+    and V pages of that many heads exceed _RING_BYTES: then the largest
+    divisor of heads that fits) over one of `chunks` runs of a slot's
+    live pages; chunks makes about two blocks per SM over the grid, and
+    at most one per page."""
+    group = heads
+    while group > 1 and (heads % group or 4 * page_size * group * head_dim
+                         * item > _RING_BYTES):
+        group -= 1
+    blocks = slots * (heads // group)
+    chunks = max(1, min(pages_per_slot, -(-2 * sms // blocks)))
+    return group, chunks
+
+
 def _launch_kernel(q, key_pages, value_pages, page_table, allowed,
                    sm_scale, key_scales, value_scales):
-    """Launches the CUDA kernel on PyTorch's current stream. Validates
-    device, dtype and contiguity first; raises on what the kernel does
-    not take and on a CUDA error from the launch."""
+    """Launches the CUDA kernels (the split pass, then the merge) on
+    PyTorch's current stream. Validates device and dtype first, copies an
+    operand that is not contiguous or 16-byte aligned (`dense`); raises
+    on what the kernel does not take and on a CUDA error from the
+    launch."""
     from cloud_tpu_torch.ops import _build
 
     quantized = key_scales is not None
@@ -175,9 +209,6 @@ def _launch_kernel(q, key_pages, value_pages, page_table, allowed,
             raise ValueError("paged_attention operands must share one "
                              "device; got {} and {}.".format(t.device,
                                                              q.device))
-        if not t.is_contiguous():
-            raise ValueError("paged_attention operands must be "
-                             "contiguous.")
     kind = _KINDS.get((q.dtype, key_pages.dtype))
     if kind is None:
         raise ValueError(
@@ -188,17 +219,26 @@ def _launch_kernel(q, key_pages, value_pages, page_table, allowed,
                          "{} and {}.".format(page_table.dtype,
                                              allowed.dtype))
     num_pages, page_size, heads, head_dim = key_pages.shape
-    if (head_dim * key_pages.element_size() % 16
-            or key_pages.data_ptr() % 16 or value_pages.data_ptr() % 16):
+    item = key_pages.element_size()
+    if head_dim * item % 16:
         raise ValueError(
             "the CUDA kernel copies K/V rows in 16-byte pieces: head_dim "
-            "* element size must be a multiple of 16 and the page arrays "
-            "16-byte aligned.")
+            "* element size must be a multiple of 16; got {} x {}.".format(
+                head_dim, item))
+    q, key_pages, value_pages, page_table, allowed = (
+        dense(t) for t in (q, key_pages, value_pages, page_table, allowed))
+    if quantized:
+        key_scales, value_scales = dense(key_scales), dense(value_scales)
     slots, seq = q.shape[:2]
-    out = torch.empty_like(q)
+    pages_per_slot = page_table.shape[1]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     fn = _library()
+    group, chunks = plan(slots, heads, head_dim, page_size, pages_per_slot,
+                         item, _sm_count(q.device.index))
+    part = torch.empty(slots * chunks * seq * heads * (head_dim + 2),
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(kind, q.data_ptr(), key_pages.data_ptr(),
@@ -206,8 +246,9 @@ def _launch_kernel(q, key_pages, value_pages, page_table, allowed,
                  allowed.data_ptr(),
                  key_scales.data_ptr() if quantized else None,
                  value_scales.data_ptr() if quantized else None,
-                 out.data_ptr(), slots, seq, heads, head_dim, page_size,
-                 page_table.shape[1], num_pages, float(sm_scale), stream)
+                 part.data_ptr(), out.data_ptr(), slots, seq, heads,
+                 head_dim, page_size, pages_per_slot, num_pages, group,
+                 chunks, float(sm_scale), stream)
     _build.check(err, "paged_attention kernel launch")
     launches["paged_attention_int8" if quantized
              else "paged_attention"] += 1
@@ -267,4 +308,4 @@ def paged_attention_cost(slots, seq, heads, head_dim, page_size,
 
 
 __all__ = ["launches", "paged_attention", "paged_attention_cost",
-           "paged_attention_reference", "reset_launches"]
+           "paged_attention_reference", "plan", "reset_launches"]

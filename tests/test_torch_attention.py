@@ -5,7 +5,9 @@ plain version) against the JAX `flash_attention` run in Pallas
 interpret mode and `jax.vjp`, for every variant of the contract.
 
 Tolerance: 1e-5 (f32 on both sides; the Pallas kernels sum blockwise
-with an online softmax, the plain version in one pass).
+with an online softmax, the plain version in one pass), at head_dim 16
+and, for the Gemma 2 shape of the contract (GQA, softcap, key mask),
+head_dim 256. bf16 inputs: see `test_bf16_reference_matches_jax_kernel`.
 """
 
 import sys
@@ -38,17 +40,22 @@ VARIANTS = {
     "softcap_gqa_mask": dict(causal=True, logit_softcap=2.0, kv_heads=2,
                              mask=True),
     "scale": dict(causal=True, sm_scale=0.3),
+    # Gemma 2's head_dim, with its softcap and GQA, at a small S.
+    "d256_softcap_gqa_mask": dict(causal=True, logit_softcap=2.0,
+                                  kv_heads=2, mask=True, head_dim=256,
+                                  sm_scale=1 / 16),
 }
 
 
 def _case(variant, seed=0):
     kw = dict(VARIANTS[variant])
     kv_heads = kw.pop("kv_heads", H)
+    d = kw.pop("head_dim", D)
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, S, H, D)).astype(np.float32)
-    k = rng.normal(size=(B, S, kv_heads, D)).astype(np.float32)
-    v = rng.normal(size=(B, S, kv_heads, D)).astype(np.float32)
-    g = rng.normal(size=(B, S, H, D)).astype(np.float32)
+    q = rng.normal(size=(B, S, H, d)).astype(np.float32)
+    k = rng.normal(size=(B, S, kv_heads, d)).astype(np.float32)
+    v = rng.normal(size=(B, S, kv_heads, d)).astype(np.float32)
+    g = rng.normal(size=(B, S, H, d)).astype(np.float32)
     if kw.pop("mask", False):
         mask = rng.random((B, S)) < 0.6
         mask[0, :9] = False       # rows 0-8 of example 0: no allowed key
@@ -111,6 +118,86 @@ def test_backward_reference_matches_jax_grads(variant):
         assert a.dtype == torch.float32 and a.shape == b.shape
         np.testing.assert_allclose(a.numpy(), b, rtol=TOL, atol=TOL,
                                    err_msg=name)
+
+
+# bf16 inputs: the port's plain version forms the logits in f32 from the
+# bf16 q and k, as the TPU kernel does (its dot takes
+# preferred_element_type=f32), where the JAX package's `mha_reference`
+# rounds them to bf16 first. So it is held against the JAX kernel in
+# interpret mode, per element: |port - jax| <= 2^-8 |jax| + BF16_ATOL
+# rms(row), a row being the D values of one (example, position, head),
+# its rms floored at 1e-2 of the tensor's. 2^-8 is the outputs' rounding
+# to bf16; the atol covers P rounded to bf16 at other points (the kernel
+# rounds exp(s - m) before dividing by l, the plain version the
+# normalised weights), which adds up over a row's terms. The least atol
+# each comparison needs, over these cases at seeds 4 and 5 and q scaled
+# by 1, 4, 8 and 16: the port at most 0.0141 (causal, q x 1); JAX's
+# `mha_reference` (bf16-rounded logits) 0.085 to 0.259 at q x 8 and 16
+# without a softcap (logits of std 8 and more, whose bf16 rounding moves
+# the weights by percents), but only 0.020 at q x 1. BF16_ATOL lies
+# between: the "_q8" cases fail the bf16-logit reference
+# (`test_bf16_limit_tells_bf16_logits_apart`).
+BF16_ATOL = 3e-2
+BF16_CASES = {
+    # name: (variant, factor on q)
+    "causal": ("causal", 1),
+    "noncausal": ("noncausal", 1),
+    "softcap_gqa_mask": ("softcap_gqa_mask", 1),
+    "window_mask": ("window_mask", 1),
+    "causal_q8": ("causal", 8),
+    "noncausal_q8": ("noncausal", 8),
+}
+
+
+def _bf16_case(name):
+    """bf16 q, k, v of the case as numpy f32 arrays, the keyword
+    arguments, and the JAX kernel's output in interpret mode (f32)."""
+    variant, q_scale = BF16_CASES[name]
+    q, k, v, _, kw = _case(variant, seed=4)
+    q = q * q_scale
+    jkw = dict(kw)
+    if "mask" in jkw:
+        jkw["mask"] = jnp.asarray(jkw["mask"])
+    want = jatt.flash_attention(
+        *(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)),
+        block_q=16, block_k=16, interpret=True, **jkw)
+    assert want.dtype == jnp.bfloat16
+    return q, k, v, kw, jkw, np.asarray(want.astype(jnp.float32))
+
+
+def _bf16_atol_needed(got, want):
+    """The least atol (in units of rms(row)) under which `got` passes."""
+    rms = np.maximum(np.sqrt((want ** 2).mean(-1, keepdims=True)),
+                     1e-2 * np.sqrt((want ** 2).mean()))
+    return float(((np.abs(got - want) - 2.0 ** -8 * np.abs(want))
+                  / rms).max())
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_bf16_reference_matches_jax_kernel(name):
+    q, k, v, kw, _, want = _bf16_case(name)
+    tkw = dict(kw)
+    if "mask" in tkw:
+        tkw["mask"] = torch.from_numpy(tkw["mask"])
+    got = tatt.mha_reference(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), **tkw)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert _bf16_atol_needed(got, want) <= BF16_ATOL
+    if "mask" in kw:
+        assert (got[1] == 0).all() and (want[1] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["causal_q8", "noncausal_q8"])
+def test_bf16_limit_tells_bf16_logits_apart(name):
+    """The limit above catches the difference it is there for: JAX's
+    `mha_reference`, which rounds the logits to bf16, fails it at logits
+    of std 8."""
+    q, k, v, _, jkw, want = _bf16_case(name)
+    rounded = jatt.mha_reference(
+        *(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)), **jkw)
+    got = np.asarray(rounded.astype(jnp.float32))
+    assert _bf16_atol_needed(got, want) > 2 * BF16_ATOL
 
 
 @pytest.mark.parametrize("fn", ["flash_attention", "attention"])

@@ -96,11 +96,95 @@ def test_kernel_rejects_what_it_does_not_take():
         tpa.paged_attention(inp["q"].float(), inp["key_pages"],
                             inp["value_pages"], inp["page_table"],
                             inp["allowed"])
-    with pytest.raises(ValueError, match="contiguous"):
-        tpa.paged_attention(inp["q"].transpose(0, 1).contiguous()
-                            .transpose(0, 1), inp["key_pages"],
-                            inp["value_pages"], inp["page_table"],
-                            inp["allowed"])
+    # A K/V row of 36 bf16 values is 72 bytes: no layout makes it a
+    # multiple of 16.
+    inp = _inputs(False, seq=1, head_dim=36)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tpa.paged_attention(inp["q"], inp["key_pages"], inp["value_pages"],
+                            inp["page_table"], inp["allowed"])
+
+
+def _long_cache(quantized, seq, seed=1):
+    """The served shape at full depth (slots 8, H 12, D 64, page 16, 64
+    pages per slot), where the kernel splits each slot's live pages over
+    several blocks: slot 0 fully live; slot 1 a single page; slot 2 a
+    full table whose only allowed keys lie in its last page, so its only
+    live page falls in its last chunk and the other chunks are empty;
+    slot 3 evicted (nothing allowed); the rest random lengths."""
+    inp = _inputs(quantized, slots=8, seq=seq, pages_per_slot=64,
+                  heads=12, seed=seed)
+    allowed = inp["allowed"].cpu().numpy()
+    table = inp["page_table"].cpu().numpy()
+    cache_len = allowed.shape[-1]
+    pos = np.arange(cache_len)
+    rows = np.arange(seq)
+    allowed[0] = pos[None, :] <= cache_len - seq + rows[:, None]
+    allowed[1] = pos[None, :] <= 16 - seq + rows[:, None]
+    allowed[2] = (pos[None, :] >= cache_len - 3) & (
+        pos[None, :] <= cache_len - seq + rows[:, None])
+    allowed[3] = False
+    # _inputs evicted slot 1 (scratch-only table); give it slot 3's first
+    # page and evict slot 3.
+    table[1, 0] = table[3, 0]
+    table[1, 1:] = 0                     # unallocated tail: scratch
+    table[3] = 0
+    dev = torch.device("cuda")
+    inp["allowed"] = torch.tensor(allowed, device=dev)
+    inp["page_table"] = torch.tensor(table, device=dev)
+    return inp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("seq", [1, 4])
+def test_kernel_matches_plain_version_at_long_caches(quantized, seq):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inp = _long_cache(quantized, seq)
+    args = (inp["q"], inp["key_pages"], inp["value_pages"],
+            inp["page_table"], inp["allowed"])
+    kw = ({"key_scales": inp["key_scales"],
+           "value_scales": inp["value_scales"]} if quantized else {})
+    group, chunks = tpa.plan(8, 12, 64, 16, 64, 1 if quantized else 2,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+    assert chunks > 1
+    out = tpa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    ref = tpa.paged_attention_reference(*args, **kw)
+    np.testing.assert_allclose(out.float().cpu(), ref.float().cpu(),
+                               atol=TOL, rtol=TOL)
+    assert (out[3] == 0).all()
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_kernel_takes_any_layout():
+    """A non-contiguous q and misaligned pages go to the kernel as
+    contiguous copies: the result equals the contiguous call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    inp = _inputs(False, seq=4)
+    args = (inp["q"], inp["key_pages"], inp["value_pages"],
+            inp["page_table"], inp["allowed"])
+    want = tpa.paged_attention(*args)
+    q_t = inp["q"].transpose(0, 1).contiguous().transpose(0, 1)
+    assert not q_t.is_contiguous()
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+
+    before = tpa.launches["paged_attention"]
+    got = tpa.paged_attention(q_t, shifted(inp["key_pages"]),
+                              shifted(inp["value_pages"]),
+                              inp["page_table"], inp["allowed"])
+    torch.cuda.synchronize()
+    assert tpa.launches["paged_attention"] == before + 1
+    assert torch.equal(got, want)
 
 
 # -- flash attention: forward, dq, dk/dv ---------------------------------
@@ -175,7 +259,7 @@ def _close(got, want, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
 @pytest.mark.parametrize("variant", sorted(FLASH_VARIANTS))
-@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_flash_kernels_match_plain_version(dtype, head_dim, variant, shape):
@@ -212,9 +296,11 @@ def test_flash_wrapper_rejects_what_the_kernels_do_not_take():
     from cloud_tpu_torch.ops import attention as tatt
 
     dev = torch.device("cuda")
-    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
-        tatt.flash_attention(q, q, q)
+    for head_dim in (32, 96, 192):
+        q = torch.zeros((1, 8, 2, head_dim), dtype=torch.bfloat16,
+                        device=dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            tatt.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="device"):
         tatt.flash_attention(q, q.cpu(), q)
@@ -224,6 +310,45 @@ def test_flash_wrapper_rejects_what_the_kernels_do_not_take():
         tatt.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="reference"):
         tatt.attention(q, q, q, impl="reference")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_take_any_layout(dtype):
+    """q as a transposed view, k and v at misaligned bases and a
+    non-contiguous dO go to the kernels as contiguous copies: out and the
+    gradients equal those of the contiguous call, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import attention as tatt
+
+    q, k, v, dout, kw = _flash_case(dtype, 64, "causal", batch=2, seq=80,
+                                    heads=4, kv_heads=2)
+    out = tatt.flash_attention(q, k, v, **kw)
+    want = (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t.detach())
+        assert view.data_ptr() % 16
+        return view.requires_grad_(True)
+
+    q_t = q.detach().transpose(1, 2).contiguous().transpose(1, 2)
+    q_t.requires_grad_(True)
+    k_s, v_s = shifted(k), shifted(v)
+    dout_t = dout.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not q_t.is_contiguous() and not dout_t.is_contiguous()
+    before = dict(tatt.launches)
+    out = tatt.flash_attention(q_t, k_s, v_s, **kw)
+    got = (out,) + torch.autograd.grad(out, (q_t, k_s, v_s), dout_t)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkdv"):
+        assert tatt.launches[name] == before[name] + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # -- fused RMSNorm (+ residual) -------------------------------------------
@@ -379,10 +504,46 @@ def test_fused_mlp_wrapper_rejects_what_the_kernels_do_not_take():
         tfm.fused_swiglu(x, w[:90], w[:90], wd[:, :90])
     with pytest.raises(ValueError, match="device"):
         tfm.fused_swiglu(x, w.cpu(), w, wd)
-    # TMA takes a 16-byte aligned base: refused before any launch.
+    # The launchers themselves take only what TMA can address: refused
+    # before any launch.
     before = dict(tfm.launches)
     shifted = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16,
                           device=dev)[1:].view(4, 64)
     with pytest.raises(ValueError, match="16-byte"):
-        tfm.fused_swiglu(shifted, w, w, wd)
+        tfm.launch_gate_up(shifted, w, w, "silu")
     assert tfm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_mlp_takes_any_layout(dtype):
+    """x at a misaligned base and transposed views of the weights go to
+    the kernels as contiguous copies: y equals the contiguous call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+    rows, d, f = 200, 136, 328
+    x = torch.tensor(rng.normal(size=(rows, d)), dtype=dtype, device=dev)
+    wg = torch.tensor(rng.normal(size=(f, d)) / np.sqrt(d), dtype=dtype,
+                      device=dev)
+    wu = torch.tensor(rng.normal(size=(f, d)) / np.sqrt(d), dtype=dtype,
+                      device=dev)
+    wd = torch.tensor(rng.normal(size=(d, f)) / np.sqrt(f), dtype=dtype,
+                      device=dev)
+    want = tfm.fused_swiglu(x, wg, wu, wd)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    x_s = flat[1:].view(rows, d)
+    x_s.copy_(x)
+    assert x_s.data_ptr() % 16
+    wg_t, wu_t, wd_t = (w.T.contiguous().T for w in (wg, wu, wd))
+    assert not wg_t.is_contiguous()
+    before = dict(tfm.launches)
+    got = tfm.fused_swiglu(x_s, wg_t, wu_t, wd_t)
+    torch.cuda.synchronize()
+    assert tfm.launches["fused_mlp_gate_up"] == \
+        before["fused_mlp_gate_up"] + 1
+    assert torch.equal(got, want)

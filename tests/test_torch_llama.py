@@ -103,6 +103,15 @@ VARIANTS = {
     "rotate_half": dict(rope_style="rotate_half",
                         rope_scaling=("llama3", 4.0)),
     "head_dim": dict(head_dim=32),
+    # Gemma 2 at head_dim 256 (google/gemma-2-2b's head_dim, softcaps,
+    # query scale 1/16, alternating local and global layers, gelu_tanh,
+    # scaled embedding, sandwich norms) at narrow widths.
+    "gemma2_head_dim256": dict(head_dim=256, post_block_norms=True,
+                               attn_logit_softcap=50.0,
+                               final_logit_softcap=30.0, attn_scale=1 / 16,
+                               attn_kinds=("local", "global"),
+                               sliding_window=8, mlp_activation="gelu_tanh",
+                               scale_embed=True),
     "key_mask": dict(mlp_activation="gelu"),
 }
 
