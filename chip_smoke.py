@@ -28,10 +28,14 @@ then:
    training shape (B 4, S 2048, H 32, H_kv 4, D 64, bf16), and at the
    GPT-2 shape with a key mask that leaves rows with no key, window
    256, softcap 50 (logits scaled to reach the cap), S 1000 and
-   causal=False, TinyLlama's widths at B 3, S 1000, and Gemma-2-2B's
+   causal=False, TinyLlama's widths at B 3, S 1000, Gemma-2-2B's
    attention (B 2, S 2048, H 8, H_kv 4, head_dim 256, softcap 50,
-   sm_scale 1/16; without and with window 512); then times each kernel
-   at the GPT-2, the TinyLlama and the Gemma-2 shapes beside its bound,
+   sm_scale 1/16; without and with window 512), and head_dims that are
+   no template width: Phi-3-mini's attention (B 2, S 2048, H 32, D 96),
+   phi-2's D 80 at the same shape, D 32 and D 36 (through the
+   zero-padded copy) and D 96 in f32 at a small shape; then times each
+   kernel at the GPT-2, the TinyLlama, the Gemma-2, the Phi-3-mini and
+   the phi-2 shapes beside its bound,
    the plain version and scaled_dot_product_attention (forward; the
    whole backward, beside the port's whole backward: delta, dq and
    dk/dv), which the port never calls, and the host time of each
@@ -72,7 +76,21 @@ then:
    once per layer and the norm kernels 2 x layers + 1 times; the loss
    gate (`llama_loss_gate`); step timing and the top kernels;
    `evaluate` and `predict`;
-8. prints the kernel table as one JSON line (one row per kernel and
+8. generates with phase 7's trained TinyLlama-1.1B (optimizer state
+   freed) through `generate()` (8 prompts of 96-480 tokens of held-out
+   chain sequences, left-padded into one 512 bucket, 64 new tokens),
+   and with the same weights imported by `import_hf_llama` from an
+   HF-named state dict: the imported model's greedy tokens equal the
+   trained model's; each greedy token lies within 0.25 logit of an f32
+   teacher-forced forward's row max and is its argmax at 95 % of
+   positions; the continuation follows the chain rule; one call
+   launches the norm kernels (2 x layers + 1) x 64 times, each MLP
+   kernel layers x 64 times and no flash kernel; two sampled calls
+   with one seed agree. Times the prefill, the decode step (p50,
+   tokens/s, busy share and top kernels under torch.profiler over 20
+   steps) and the norm and MLP kernels at rows 8 beside their bounds,
+   plain versions and library calls;
+9. prints the kernel table as one JSON line (one row per kernel and
    path that launches it, with that path's launches and the times at
    its shape), the card line, and the contract line
    `{"ok": true, "device": {...}}` last.
@@ -87,6 +105,13 @@ runs phase 7's fit alone on the port found in TREE (this checkout, or
 an earlier commit unpacked there with `git archive`), once per data
 seed in the comma-separated SEEDS, and writes each seed's losses and
 gate to OUT (JSON).
+
+    python3 chip_smoke.py --flash-times TREE OUT
+
+times the three bf16 flash kernels alone at GPT-2's, TinyLlama's and
+Gemma-2's training shapes on the port in TREE and writes them to OUT
+(JSON): run it for two trees, in turns, in one call to compare them on
+one card.
 """
 
 import json
@@ -574,8 +599,23 @@ FLASH_CASES = (
     ("gemma2_window_bf16", "bf16", (2, 2048, 8, 4, 256),
      dict(causal=True, sm_scale=1 / 16, logit_softcap=50.0, window=512),
      None, 20),
+    # head_dims between the template widths. Phi-3-mini's attention (the
+    # public microsoft/Phi-3-mini-4k-instruct config.json: 32 heads, no
+    # GQA, hidden 3072, so head_dim 96) and phi-2's head_dim 80 (the public
+    # microsoft/phi-2: 32 heads, hidden 2560) at B 2, S 2048; D 32 and D
+    # 36 (not a multiple of 8: the zero-padded copy) and D 96 in f32 at a
+    # small shape.
+    ("phi3_d96_bf16", "bf16", (2, 2048, 32, 32, 96), dict(causal=True),
+     None, 1),
+    ("phi2_d80_bf16", "bf16", (2, 2048, 32, 32, 80), dict(causal=True),
+     None, 1),
+    ("d32_bf16", "bf16", (2, 300, 8, 4, 32), dict(causal=True), "dead", 1),
+    ("d36_bf16", "bf16", (2, 300, 8, 4, 36), dict(causal=True), "dead", 1),
+    ("d96_f32", "f32", (2, 300, 8, 4, 96), dict(causal=True), "dead", 1),
 )
 GEMMA2_ATTENTION = (2, 2048, 8, 4, 256)
+PHI3_ATTENTION = (2, 2048, 32, 32, 96)
+PHI2_ATTENTION = (2, 2048, 32, 32, 80)
 # The case at each training path's shape; its errors go into that path's
 # rows of the kernel table.
 FLASH_PATH_CASES = {"gpt2_bf16": "gpt2_train",
@@ -677,7 +717,11 @@ def check_flash_kernels(device):
                                            device, q_scale)
         leaves = [x.requires_grad_(True) for x in (q, k, v)]
         out = tatt.flash_attention(*leaves, mask=mask, **kw)
-        lse = out.grad_fn.saved_tensors[-1]   # [B, H, S], f32
+        node = out.grad_fn
+        while not hasattr(node, "saved_tensors"):
+            # The slice back to D of a call on a zero-padded copy.
+            node = node.next_functions[0][0]
+        lse = node.saved_tensors[-1]   # [B, H, S], f32
         dq, dk, dv = torch.autograd.grad(out, leaves, dout)
         torch.cuda.synchronize()
         f32 = [x.detach().float() for x in (q, k, v, dout)]
@@ -1069,7 +1113,7 @@ def train(device):
     batches = [(x[i:i + TRAIN_BATCH], y[i:i + TRAIN_BATCH])
                for i in range(0, n_train, TRAIN_BATCH)]
     step_s, times = time_steps(trainer, batches)
-    prof = profile_steps(trainer, batches, ("flash_",))
+    prof = profile_steps(train_step(trainer, batches), ("flash_",))
     cost = tatt.flash_attention_cost(TRAIN_BATCH, TRAIN_SEQ,
                                      model.num_heads, model.num_heads,
                                      model.head_dim, causal=True)
@@ -1120,12 +1164,17 @@ def time_steps(trainer, batches, n=10):
     return float(np.median(times)), times
 
 
-def profile_steps(trainer, batches, match, n=3):
-    """`n` steps under torch.profiler: the device busy share (the union
-    of the device events' intervals over the host wall time; events may
-    overlap, so their sum may exceed it), device ms per step, the share
-    of device time in kernels whose name holds one of `match`, and the
-    top 10 kernels by device time."""
+def train_step(trainer, batches):
+    """step(i): the Trainer's step body on batch i (cycling)."""
+    return lambda i: trainer._train_step(batches[i % len(batches)], False)
+
+
+def profile_steps(step, match, n=3):
+    """`n` calls step(0) .. step(n - 1) under torch.profiler: the device
+    busy share (the union of the device events' intervals over the host
+    wall time; events may overlap, so their sum may exceed it), device
+    ms per step, the share of device time in kernels whose name holds
+    one of `match`, and the top 10 kernels by device time."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1133,7 +1182,7 @@ def profile_steps(trainer, batches, match, n=3):
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.monotonic()
         for i in range(n):
-            trainer._train_step(batches[i % len(batches)], False)
+            step(i)
         torch.cuda.synchronize()
         prof_wall_us = (time.monotonic() - t1) * 1e6
     spans, by_name = [], {}
@@ -1648,7 +1697,8 @@ def llama_gate_passes(losses, gate):
 
 def train_llama(device):
     """Phase 7: TinyLlama-1.1B through `Trainer.fit`; returns (launches
-    in fit, summary dict)."""
+    in fit, summary dict, the trained model without its optimizer state
+    or gradients, its data)."""
     import torch
     from cloud_tpu_torch.models import TINYLLAMA_1_1B, LlamaLM
     from cloud_tpu_torch.ops import attention as tatt
@@ -1687,7 +1737,7 @@ def train_llama(device):
     batches = [(x[i:i + LLAMA_BATCH], y[i:i + LLAMA_BATCH])
                for i in range(0, n_train, LLAMA_BATCH)]
     step_s, times = time_steps(trainer, batches)
-    prof = profile_steps(trainer, batches,
+    prof = profile_steps(train_step(trainer, batches),
                          ("flash_", "rmsnorm_kernel", "gemm_bf16"))
     cost = tatt.flash_attention_cost(LLAMA_BATCH, LLAMA_SEQ, model.num_heads,
                                      model.num_kv_heads, model.head_dim,
@@ -1725,9 +1775,355 @@ def train_llama(device):
             prof["device_ms_per_step"], prof["matched_share_of_device"],
             json.dumps(val)))
     log_top_kernels("llama", prof["top_kernels"])
-    del trainer, model
+    del trainer
+    model.zero_grad(set_to_none=True)
     torch.cuda.empty_cache()
-    return launches, summary
+    return launches, summary, model, data
+
+
+# -- phase 8: TinyLlama-1.1B generate ----------------------------------------
+
+GEN_BATCH, GEN_NEW = 8, 64
+# Prompt lengths (tokens of phase 7's held-out chain sequences), left-padded
+# to the longest: generate() buckets them to 512.
+GEN_PROMPT_LENS = (96, 150, 205, 260, 315, 370, 425, 480)
+# Share of the greedy continuation's tokens that must follow the chain rule
+# of `training_data` (each token the image of the one two places before
+# under the data's permutation): phase 7 ends its fit at a loss of a few
+# hundredths of a nat, so its greedy tokens follow the rule nearly always.
+GEN_CHAIN_RATE = 0.9
+GEN_STEPS_TIMED = 20
+
+
+def hf_state_of(model):
+    """The port's `LlamaLM` state dict under HF Llama names (the port's
+    weights are HF's [out, in] already and TinyLlama's RoPE is
+    rotate-half, so this is renames), and the HF config dict of
+    TINYLLAMA_1_1B: what `import_hf_llama` reads from a checkpoint."""
+    from cloud_tpu_torch.models import TINYLLAMA_1_1B as cfg
+
+    renames = {"norm_attn": "input_layernorm",
+               "norm_mlp": "post_attention_layernorm",
+               "attention.query": "self_attn.q_proj",
+               "attention.key": "self_attn.k_proj",
+               "attention.value": "self_attn.v_proj",
+               "attention.out": "self_attn.o_proj",
+               "mlp.gate": "mlp.gate_proj", "mlp.up": "mlp.up_proj",
+               "mlp.down": "mlp.down_proj"}
+    state = {}
+    for name, tensor in model.state_dict().items():
+        if name == "embed.weight":
+            state["model.embed_tokens.weight"] = tensor
+        elif name == "norm_final.weight":
+            state["model.norm.weight"] = tensor
+        elif name == "lm_head.weight":
+            state[name] = tensor
+        else:
+            _, layer, rest = name.split(".", 2)
+            module = rest[:-len(".weight")]
+            state["model.layers.{}.{}.weight".format(
+                layer, renames[module])] = tensor
+    config = {"model_type": "llama", "vocab_size": cfg["vocab_size"],
+              "hidden_size": cfg["d_model"],
+              "intermediate_size": cfg["d_ff"],
+              "num_hidden_layers": cfg["num_layers"],
+              "num_attention_heads": cfg["num_heads"],
+              "num_key_value_heads": cfg["num_kv_heads"],
+              "max_position_embeddings": cfg["max_seq_len"],
+              "rope_theta": cfg["rope_theta"],
+              "rms_norm_eps": cfg["norm_eps"], "hidden_act": "silu",
+              "tie_word_embeddings": False}
+    return state, config
+
+
+def chain_map(x, y):
+    """{token: the token two places after it} read from the data (the
+    permutation `training_data` draws its chains with)."""
+    tokens = np.concatenate([x[:, :1], y], axis=1)
+    return dict(zip(tokens[:, :-2].ravel().tolist(),
+                    tokens[:, 2:].ravel().tolist()))
+
+
+def expected_generate_launches(layers, new_tokens):
+    """Launches of one generate() call: the model runs once per token
+    (the prefill, then a step per further token); each run launches the
+    norm with the residual once per layer and without it once per layer
+    and once for the final norm, each MLP kernel once per layer, and no
+    attention kernel (decode attention is plain PyTorch)."""
+    return {"flash_attention_fwd": 0, "flash_attention_dq": 0,
+            "flash_attention_dkdv": 0,
+            "fused_mlp_gate_up": layers * new_tokens,
+            "fused_mlp_down": layers * new_tokens,
+            "fused_norm": layers * new_tokens,
+            "fused_norm_noresidual": (layers + 1) * new_tokens,
+            "paged_attention": 0, "paged_attention_int8": 0}
+
+
+def decode_kernel_rows(model, device, rows=GEN_BATCH):
+    """The norm and MLP kernels at a decode step's shape (rows = the
+    batch, TinyLlama's widths, bf16), each against its plain version,
+    timed by CUDA-graph replays beside its byte bound, the plain version
+    and the library call (F.rms_norm of x + r; the F.linear calls of the
+    plain MLP). The MLP kernels read every layer's weights in turn (22
+    calls per replay, 1.5 GB), as a decode step does, so they come from
+    device memory, not from L2. Returns rows by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    rng = np.random.default_rng(30)
+    dt = torch.bfloat16
+    d, f, eps = model.d_model, model.d_ff, model.norm_eps
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            dtype=dt, device=device)
+
+    out = {}
+    x, r = t(rows, d), t(rows, d)
+    scale = model.blocks[0].norm_mlp.weight.detach()
+    for kernel, res in (("fused_norm", r), ("fused_norm_noresidual", None)):
+        normed, _ = tfn._launch(x, res, scale, eps, dt)
+        plain, _ = tfn.rmsnorm_residual_reference(x, scale, res, eps,
+                                                  out_dtype=torch.float32)
+        err = compare(normed, plain, *NORM_TOL["bf16"])
+        if not err["tol_ratio"] <= 1.0:
+            raise AssertionError("{} at rows {}: error {:.3e} of the bound"
+                                 .format(kernel, rows, err["tol_ratio"]))
+
+        def library(res=res):
+            h = x if res is None else x + res
+            return F.rms_norm(h, (d,), scale, eps), h
+
+        cost = tfn.fused_norm_cost((rows, d), dt,
+                                   with_residual=res is not None)
+        row = out[kernel] = {
+            "ms": timed_ms(lambda res=res: tfn._launch(x, res, scale, eps,
+                                                       dt)),
+            "plain_ms": timed_ms(
+                lambda res=res: tfn.rmsnorm_residual_reference(
+                    x, scale, res, eps)),
+            "library_ms": timed_ms(library),
+            "max_abs_err": err["max_abs_err"], "rows": rows}
+        row["bound_ms"], row["bound_by"] = bound_of(cost)
+    weights = [(b.mlp.gate.weight.detach().to(dt),
+                b.mlp.up.weight.detach().to(dt),
+                b.mlp.down.weight.detach().to(dt)) for b in model.blocks]
+    xm = t(rows, d)
+    a = tfm.launch_gate_up(xm, *weights[0][:2], "silu")
+    want_a, _ = tfm.swiglu_rounded_reference(xm, *weights[0], "silu")
+    err_a = compare(a, want_a, *MLP_TOL["bf16"]["a"])
+    y = tfm.launch_down(a, weights[0][2])
+    err_d = compare(y, a.float() @ weights[0][2].float().T,
+                    *MLP_TOL["bf16"]["down"])
+    if not (err_a["tol_ratio"] <= 1.0 and err_d["tol_ratio"] <= 1.0):
+        raise AssertionError("fused mlp at rows {}: errors {:.3e} {:.3e} of "
+                             "the bound".format(rows, err_a["tol_ratio"],
+                                                err_d["tol_ratio"]))
+    act = tfm._ACTIVATIONS["silu"]
+
+    def cycling(fn):
+        layer = [0]
+
+        def call():
+            w = weights[layer[0] % len(weights)]
+            layer[0] += 1
+            return fn(*w)
+        return call
+
+    n = len(weights)
+    timing = {
+        "fused_mlp_gate_up": (
+            timed_ms(cycling(lambda wg, wu, wd: tfm.launch_gate_up(
+                xm, wg, wu, "silu")), iters=n),
+            timed_ms(cycling(lambda wg, wu, wd: act(F.linear(xm, wg))
+                             * F.linear(xm, wu)), iters=n), err_a),
+        "fused_mlp_down": (
+            timed_ms(cycling(lambda wg, wu, wd: tfm.launch_down(a, wd)),
+                     iters=n),
+            timed_ms(cycling(lambda wg, wu, wd: F.linear(a, wd)), iters=n),
+            err_d)}
+    cost = tfm.fused_mlp_cost((rows, d), f, dt)
+    for kernel, part in (("fused_mlp_gate_up", "gate_up"),
+                         ("fused_mlp_down", "down")):
+        ms, plain_ms, err = timing[kernel]
+        row = out[kernel] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": plain_ms,
+                             "max_abs_err": err["max_abs_err"],
+                             "rows": rows}
+        row["bound_ms"], row["bound_by"] = bound_of(cost[part])
+    for kernel, row in out.items():
+        log("kernel {} at decode rows {} (D {}, d_ff {}, bf16): {:.4f} ms "
+            "(bound {:.4f} ms by {}), plain {:.4f} ms, library {:.4f} ms; "
+            "max abs err {:.3e}".format(
+                kernel, rows, d, f, row["ms"], row["bound_ms"],
+                row["bound_by"], row["plain_ms"], row["library_ms"],
+                row["max_abs_err"]))
+    del weights
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_llama(model, data, device):
+    """Phase 8: TinyLlama-1.1B (phase 7's trained model) through
+    `generate()`, and the same weights imported by `import_hf_llama` from
+    an HF-named state dict. Checks (a) the imported model's greedy tokens
+    equal the trained model's; (b) each greedy token lies within
+    LOGIT_MARGIN of the row max of an f32 teacher-forced training forward
+    over prompt + continuation and is its argmax at MIN_EXACT of
+    positions; (c) the continuation follows the chain rule at
+    GEN_CHAIN_RATE; (d) one generate() call's launches
+    (`expected_generate_launches`); (e) two sampled calls with one seed
+    agree. Times the prefill, the decode step and one generate() call,
+    and 20 steps under the profiler. Returns (launches of the trained
+    model's greedy call, kernel rows at decode rows, summary)."""
+    import torch
+    from cloud_tpu_torch.models import (TINYLLAMA_1_1B, LlamaLM, decoding,
+                                        generate, import_hf_llama)
+
+    t_phase = time.monotonic()
+    state, config = hf_state_of(model)
+    t0 = time.monotonic()
+    imported = import_hf_llama(state_dict=state, config=config,
+                               compute_dtype=torch.bfloat16, device=device)
+    import_s = time.monotonic() - t0
+    del state
+    same = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), imported.state_dict().values()))
+    if not same or list(model.state_dict()) != list(imported.state_dict()):
+        raise AssertionError("import_hf_llama did not reproduce the weights")
+
+    x_val = data["x_val"]
+    width = max(GEN_PROMPT_LENS)
+    prompt = np.zeros((GEN_BATCH, width), np.int64)
+    mask = np.zeros((GEN_BATCH, width), bool)
+    for row, n in enumerate(GEN_PROMPT_LENS):
+        prompt[row, width - n:] = x_val[row, :n]
+        mask[row, width - n:] = True
+
+    reset_all_launches()
+    t0 = time.monotonic()
+    greedy = generate(model, prompt, GEN_NEW, temperature=0.0,
+                      prompt_mask=mask).numpy()
+    generate_s = time.monotonic() - t0
+    launches = all_launches()
+    want = expected_generate_launches(model.num_layers, GEN_NEW)
+    if launches != want:
+        raise AssertionError("generate launched {}; expected {}".format(
+            launches, want))
+    imported_tokens = generate(imported, prompt, GEN_NEW, temperature=0.0,
+                               prompt_mask=mask).numpy()
+    if not np.array_equal(imported_tokens, greedy):
+        raise AssertionError("the imported model's greedy tokens differ "
+                             "from the trained model's")
+    sampled = [generate(model, prompt, GEN_NEW, seed=7, temperature=1.0,
+                        top_p=0.9, prompt_mask=mask).numpy()
+               for _ in range(2)]
+    if not np.array_equal(*sampled):
+        raise AssertionError("two sampled generate() calls with one seed "
+                             "differ")
+    del imported
+    decoding.clear_cache_pool()
+    torch.cuda.empty_cache()
+
+    # (b) teacher-forced f32 forward over each row's real tokens.
+    ref = LlamaLM(compute_dtype=torch.float32, device=device, seed=None,
+                  **TINYLLAMA_1_1B)
+    ref.load_state_dict(model.state_dict())
+    gaps, exact = [], []
+    follows = []
+    step2 = chain_map(data["x"], data["y"])
+    for row, n in enumerate(GEN_PROMPT_LENS):
+        seq = np.concatenate([x_val[row, :n], greedy[row, width:]])
+        with torch.no_grad():
+            logits = ref(torch.as_tensor(seq[None], device=device))[0]
+        pred = logits[n - 1:n - 1 + GEN_NEW]
+        toks = torch.as_tensor(seq[n:], device=device)
+        chosen = pred.gather(1, toks[:, None])[:, 0]
+        gaps.append((pred.max(-1).values - chosen).cpu().numpy())
+        exact.append((pred.argmax(-1) == toks).cpu().numpy())
+        follows += [step2.get(int(seq[p - 2])) == int(seq[p])
+                    for p in range(n, n + GEN_NEW)]
+    del ref
+    torch.cuda.empty_cache()
+    gaps, exact = np.concatenate(gaps), np.concatenate(exact)
+    chain_rate = float(np.mean(follows))
+    log("llama generate: {} prompts of {}-{} tokens left-padded to {} "
+        "(bucket 512), {} new tokens; imported model's tokens equal: yes; "
+        "greedy tokens vs the f32 forward: max gap {:.4f} (limit {}), exact "
+        "argmax {:.4f} (at least {}); chain rule followed {:.4f} (at least "
+        "{}); sampled calls with one seed equal: yes".format(
+            GEN_BATCH, min(GEN_PROMPT_LENS), width, width, GEN_NEW,
+            gaps.max(), LOGIT_MARGIN[""], exact.mean(), MIN_EXACT,
+            chain_rate, GEN_CHAIN_RATE))
+    if not (gaps.max() <= LOGIT_MARGIN[""] and exact.mean() >= MIN_EXACT):
+        raise AssertionError("greedy tokens disagree with the f32 forward")
+    if not chain_rate >= GEN_CHAIN_RATE:
+        raise AssertionError("the continuation follows the chain rule at "
+                             "{:.4f} < {}".format(chain_rate,
+                                                  GEN_CHAIN_RATE))
+
+    # Timing: the prefill, then single-token steps over the dense cache,
+    # each closed by a synchronize; then steps under the profiler.
+    bucket = decoding.bucket_length(width, model.max_seq_len - GEN_NEW)
+    tokens = np.pad(prompt, ((0, 0), (bucket - width, 0)))
+    pmask = np.pad(mask, ((0, 0), (bucket - width, 0)))
+    tokens = torch.as_tensor(tokens, device=device)
+    pmask = torch.as_tensor(pmask, device=device)
+    prefill_times = []
+    for _ in range(2):
+        cache = model.init_cache(GEN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits = model(tokens, pmask, cache)
+        torch.cuda.synchronize()
+        prefill_times.append(time.monotonic() - t0)
+    cur = [logits[:, -1].argmax(-1)]
+
+    def step(_):
+        cur[0] = model(cur[0][:, None], None, cache)[:, 0].argmax(-1)
+
+    step_times = []
+    for i in range(GEN_STEPS_TIMED):
+        t0 = time.monotonic()
+        step(i)
+        torch.cuda.synchronize()
+        step_times.append(time.monotonic() - t0)
+    prof = profile_steps(step, ("rmsnorm_kernel", "gemm_bf16"),
+                         n=GEN_STEPS_TIMED)
+    del cache, logits
+    step_s = float(np.median(step_times))
+    rows = decode_kernel_rows(model, device)
+    summary = {
+        "batch": GEN_BATCH, "new_tokens": GEN_NEW,
+        "prompt_lens": list(GEN_PROMPT_LENS), "bucket": bucket,
+        "import_s": import_s, "generate_s": generate_s,
+        "generate_tokens_per_s": GEN_BATCH * GEN_NEW / generate_s,
+        "launches": launches, "max_logit_gap": float(gaps.max()),
+        "exact_argmax_share": float(exact.mean()),
+        "chain_rule_rate": chain_rate,
+        "prefill_ms": min(prefill_times) * 1e3,
+        "prefill_times_s": prefill_times,
+        "step_p50_ms": step_s * 1e3, "step_times_s": step_times,
+        "step_tokens_per_s": GEN_BATCH / step_s,
+        "device_busy_share": prof["device_busy_share"],
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "port_kernels_share_of_device": prof["matched_share_of_device"],
+        "top_kernels": prof["top_kernels"], "kernel_rows": rows,
+        "greedy_tokens": greedy[:, width:].tolist(),
+        "phase_s": time.monotonic() - t_phase}
+    log("llama generate: import {:.2f} s; generate() of {} x {} tokens "
+        "{:.2f} s ({:.1f} tokens/s); prefill (8 x {}) {:.2f} ms; decode "
+        "step p50 {:.2f} ms ({:.1f} tokens/s), device {:.2f} ms/step, busy "
+        "{}, the port's kernels {} of device time; phase {:.1f} s".format(
+            import_s, GEN_BATCH, GEN_NEW, generate_s,
+            summary["generate_tokens_per_s"], bucket, summary["prefill_ms"],
+            step_s * 1e3, GEN_BATCH / step_s, prof["device_ms_per_step"],
+            prof["device_busy_share"], prof["matched_share_of_device"],
+            summary["phase_s"]))
+    log_top_kernels("llama generate", prof["top_kernels"])
+    return launches, rows, summary
 
 
 def llama_gate_seeds(seeds, out_path):
@@ -1767,9 +2163,56 @@ def llama_gate_seeds(seeds, out_path):
     return 0
 
 
+FLASH_TIMES_SHAPES = {"gpt2": (8, 1024, 12, 12, 64),
+                      "tinyllama": (LLAMA_BATCH, LLAMA_SEQ, 32, 4, 64),
+                      "gemma2": GEMMA2_ATTENTION}
+
+
+def flash_times(out_path):
+    """The three flash kernels alone (CUDA-graph replays, bf16, causal)
+    at GPT-2's, TinyLlama's and Gemma-2's shapes, on the port that is
+    first on sys.path; written as JSON to `out_path`."""
+    import torch
+    from cloud_tpu_torch.ops import _build
+    from cloud_tpu_torch.ops import attention as tatt
+
+    _build.build(["flash_attention"])
+    device = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    out = {"nvidia_smi": nvidia_smi_line()}
+    for name, shape in FLASH_TIMES_SHAPES.items():
+        q, k, v, dout, _ = flash_inputs(rng, "bf16", shape, None, device)
+        config = (True, 1.0 / np.sqrt(shape[-1]), 0, 0.0)
+        o, lse = tatt._launch_forward(q, k, v, None, config)
+        delta = tatt._delta(dout, o)
+        out[name] = {
+            "flash_attention_fwd": timed_ms(lambda: tatt._launch_forward(
+                q, k, v, None, config)),
+            "flash_attention_dq": timed_ms(lambda: tatt._launch_dq(
+                q, k, v, None, dout, lse, delta, config)),
+            "flash_attention_dkdv": timed_ms(lambda: tatt._launch_dkdv(
+                q, k, v, None, dout, lse, delta, config))}
+        log("flash times {} {}: {}".format(name, shape, json.dumps(
+            out[name])))
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
 def main():
     t_start = time.monotonic()
     import torch
+
+    if "--flash-times" in sys.argv:
+        # python3 chip_smoke.py --flash-times TREE OUT: the flash kernels'
+        # times on the port in TREE (e.g. an earlier commit unpacked by
+        # `git archive`), for comparing two trees on one card.
+        tree, out_path = sys.argv[sys.argv.index("--flash-times") + 1:][:2]
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device available", file=sys.stderr)
+            return 2
+        sys.path.insert(0, os.path.abspath(tree))
+        return flash_times(out_path)
 
     if "--llama-gate" in sys.argv:
         # python3 chip_smoke.py --llama-gate TREE SEEDS OUT: phase 7's fit
@@ -1825,6 +2268,8 @@ def main():
     flash_rows_llama = time_flash_kernels(device, (LLAMA_BATCH, LLAMA_SEQ,
                                                    32, 4, 64))
     flash_rows_gemma = time_flash_kernels(device, GEMMA2_ATTENTION)
+    flash_rows_phi3 = time_flash_kernels(device, PHI3_ATTENTION)
+    flash_rows_phi2 = time_flash_kernels(device, PHI2_ATTENTION)
     norm_rows, norm_details = check_norm_kernels(device)
     mlp_rows, mlp_details = check_mlp_kernels(device)
 
@@ -1839,7 +2284,11 @@ def main():
     del model, ref_model
     torch.cuda.empty_cache()
     flash_launches, training = train(device)
-    llama_launches, llama_training = train_llama(device)
+    llama_launches, llama_training, llama, llama_data_ = train_llama(device)
+    gen_launches, gen_rows, generation = generate_llama(llama, llama_data_,
+                                                        device)
+    del llama
+    torch.cuda.empty_cache()
 
     # One row per kernel and path that launches it: the launches counted
     # from 0 around that path's run, the times and errors at its shape.
@@ -1870,6 +2319,8 @@ def main():
             ("fused_mlp_down", "fused_mlp.cu", "fused_mlp.py:96", mlp_rows)):
         entries.append((name, source, replaces, "tinyllama_train",
                         llama_launches[name], table[name]))
+        entries.append((name, source, replaces, "tinyllama_generate",
+                        gen_launches[name], gen_rows[name]))
     kernels = [{
         "name": name, "route": "cuda",
         "source": "cloud_tpu_torch/ops/csrc/" + source,
@@ -1894,8 +2345,11 @@ def main():
                    "flash_timing": flash_rows,
                    "flash_timing_tinyllama": flash_rows_llama,
                    "flash_timing_gemma2": flash_rows_gemma,
+                   "flash_timing_phi3": flash_rows_phi3,
+                   "flash_timing_phi2": flash_rows_phi2,
                    "norm_checks": norm_details, "mlp_checks": mlp_details,
                    "training": training, "llama_training": llama_training,
+                   "llama_generate": generation,
                    "build_logs": _build.build_logs}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,10 +9,10 @@ plain PyTorch version runs instead.
 
 Ported so far: paged decode attention (fp and int8 pages), flash
 attention (forward and backward), the fused residual-add + RMSNorm and
-the fused SwiGLU MLP; `TransformerLM` (training forward and decode),
-`generate()`, `LlamaLM` (training forward), the plain serving path
-(`Scheduler` -> `DecodeEngine`) and `Trainer` (fit / evaluate / predict
-over arrays).
+the fused SwiGLU MLP; `TransformerLM` and `LlamaLM` (training forward
+and decode), `generate()`, the HuggingFace importers, the plain serving
+path (`Scheduler` -> `DecodeEngine`) and `Trainer` (fit / evaluate /
+predict over arrays).
 """
 
 from cloud_tpu_torch import models, ops, serving, training

@@ -1,18 +1,20 @@
-"""Models of the PyTorch port: `TransformerLM` (training forward and
-decode), `generate()`, `LlamaLM` (training forward), the decode-cache
-helpers and the JAX parameter converters."""
+"""Models of the PyTorch port: `TransformerLM` and `LlamaLM` (training
+forward and decode), `generate()`, the HuggingFace importers, the
+decode-cache helpers and the JAX parameter converters."""
 
 from cloud_tpu_torch.models import decoding
 from cloud_tpu_torch.models.convert import (llama_params_from_flax,
                                             llama_params_to_flax,
                                             params_from_flax, params_to_flax)
-from cloud_tpu_torch.models.llama import (TINYLLAMA_1_1B, LlamaLM,
-                                          RopeScaling, apply_rope)
+from cloud_tpu_torch.models.hf_import import import_hf_gpt2, import_hf_llama
+from cloud_tpu_torch.models.llama import (TINYLLAMA_1_1B, GQAttention,
+                                          LlamaLM, RopeScaling, apply_rope)
 from cloud_tpu_torch.models.transformer import (CausalSelfAttention,
                                                 TransformerBlock,
                                                 TransformerLM, generate)
 
-__all__ = ["CausalSelfAttention", "LlamaLM", "RopeScaling", "TINYLLAMA_1_1B",
-           "TransformerBlock", "TransformerLM", "apply_rope", "decoding",
-           "generate", "llama_params_from_flax", "llama_params_to_flax",
-           "params_from_flax", "params_to_flax"]
+__all__ = ["CausalSelfAttention", "GQAttention", "LlamaLM", "RopeScaling",
+           "TINYLLAMA_1_1B", "TransformerBlock", "TransformerLM",
+           "apply_rope", "decoding", "generate", "import_hf_gpt2",
+           "import_hf_llama", "llama_params_from_flax",
+           "llama_params_to_flax", "params_from_flax", "params_to_flax"]

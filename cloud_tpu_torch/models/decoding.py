@@ -1,10 +1,11 @@
 """Shared KV-cache slot bookkeeping and sampling for decode-mode
 attention; the port of `cloud_tpu/models/decoding.py`.
 
-Caches are plain dicts (built by `TransformerLM.init_cache`), updated
-in place: a decode call writes its K/V and bookkeeping into the tensors
-it is given, where the JAX package returns a new cache tree. One
-attention layer's dense cache holds
+Caches are plain dicts (built by `TransformerLM.init_cache` and
+`LlamaLM.init_cache`), updated in place: a decode call writes its K/V
+and bookkeeping into the tensors it is given, where the JAX package
+returns a new cache tree. One attention layer's dense cache
+(`dense_cache_layer`) holds K/V [B, L, H_kv, D] in the compute dtype and
 
   cache_index  int      slot write pointer (shared across examples)
   slot_valid   [B, L]   True where a real token was written
@@ -23,7 +24,16 @@ seed gives one int64 seed per generated token (`sample_seeds`; column
 0 for the prefill draw, column i for step i), the analogue of
 `generate()`'s split key schedule, so the serving engine and a solo
 `generate()` consume the same noise.
+
+`acquire_cache` / `release_cache` recycle dense decode caches between
+`generate()` calls (a pool keyed on the decoder and the batch, re-zeroed
+in place), and `decode_latency_start` / `decode_latency_finish` feed the
+per-token decode latency to `monitoring.telemetry` when it is enabled.
 """
+
+import sys
+import threading
+import time
 
 import numpy as np
 import torch
@@ -185,12 +195,123 @@ def sample_slots(logits, seeds, temperature, top_k, top_p):
     return out
 
 
+def _cache_shapes(decoder, batch):
+    """{name: (shape, dtype)} of one attention layer's dense decode
+    cache for `batch` rows of `decoder` (a `TransformerLM` or
+    `LlamaLM`): K/V [B, L, H_kv, D] in the compute dtype (H_kv =
+    num_kv_heads, or num_heads where the model has no GQA; L =
+    max_seq_len) and the slot bookkeeping of `decode_slot_update`."""
+    heads = getattr(decoder, "num_kv_heads", decoder.num_heads)
+    length = decoder.max_seq_len
+    kv = ((batch, length, heads, decoder.head_dim), decoder.compute_dtype)
+    return {"cached_key": kv, "cached_value": kv,
+            "slot_valid": ((batch, length), torch.bool),
+            "slot_pos": ((batch, length), torch.int32),
+            "token_count": ((batch,), torch.int32)}
+
+
+def dense_cache_layer(decoder, batch):
+    """One attention layer's zeroed dense decode cache (`_cache_shapes`)
+    on the decoder's device, write pointer `cache_index` at 0."""
+    layer = {name: torch.zeros(shape, dtype=dtype, device=decoder.device)
+             for name, (shape, dtype) in _cache_shapes(decoder,
+                                                       batch).items()}
+    layer["cache_index"] = 0
+    return layer
+
+
 def empty_cache(decoder, batch, **paged):
-    """Zero-initialized decode cache for `batch` rows of a
-    `TransformerLM` (`paged` = page_size/num_pages/page_dtype for a
-    page-pool cache). Every call allocates anew; the JAX package's
-    reuse pool has no counterpart here."""
+    """Zero-initialized decode cache for `batch` rows of a decoder
+    (`paged` = page_size/num_pages/page_dtype for a `TransformerLM`
+    page-pool cache). Every call allocates anew; `acquire_cache`
+    recycles."""
     return decoder.init_cache(batch, **paged)
+
+
+# -- decode-cache reuse pool -------------------------------------------------
+#
+# `empty_cache` allocates a whole KV cache per call, so a loop of
+# generate() calls churns allocations of that size at request rate. The
+# pool recycles them: `release_cache` parks a finished call's cache,
+# `acquire_cache` zeroes a parked one in place and hands it back. Keyed on
+# (decoder, batch), which fixes every tensor's shape; at most
+# _CACHE_POOL_DEPTH caches a key; thread-safe.
+
+_CACHE_POOL = {}
+_CACHE_POOL_LOCK = threading.Lock()
+_CACHE_POOL_DEPTH = 2
+
+
+def _zero_in_place(cache):
+    for layer in cache["layers"]:
+        for name, value in layer.items():
+            if isinstance(value, torch.Tensor):
+                value.zero_()
+            else:
+                layer[name] = 0
+    for value in cache.values():
+        if isinstance(value, torch.Tensor):
+            value.zero_()
+    return cache
+
+
+def acquire_cache(decoder, batch):
+    """A zeroed dense decode cache for (decoder, batch): a parked one,
+    zeroed in place, when the pool holds one; else `empty_cache`."""
+    with _CACHE_POOL_LOCK:
+        parked = _CACHE_POOL.get((decoder, batch))
+        cache = parked.pop() if parked else None
+    if cache is None:
+        return empty_cache(decoder, batch)
+    return _zero_in_place(cache)
+
+
+def release_cache(decoder, batch, cache):
+    """Parks a finished decode's cache for reuse; the caller must not
+    touch it afterwards (the next acquire zeroes it). Drops it when the
+    pool is full for the key."""
+    if cache is None:
+        return
+    with _CACHE_POOL_LOCK:
+        parked = _CACHE_POOL.setdefault((decoder, batch), [])
+        if len(parked) < _CACHE_POOL_DEPTH:
+            parked.append(cache)
+
+
+def clear_cache_pool():
+    """Empties the reuse pool (test isolation; frees the parked
+    memory)."""
+    with _CACHE_POOL_LOCK:
+        _CACHE_POOL.clear()
+
+
+def decode_latency_start():
+    """Start handle (monotonic ns) of one generate() call for
+    `decode_latency_finish`, or None when telemetry is off. The disabled
+    path is one dict lookup: a telemetry module never imported is not
+    enabled, and nothing is imported here."""
+    telemetry = sys.modules.get("cloud_tpu_torch.monitoring.telemetry")
+    if telemetry is None or not telemetry.enabled():
+        return None
+    return time.monotonic_ns()
+
+
+def decode_latency_finish(start, n_tokens):
+    """Completes a `decode_latency_start` handle: records one "decode"
+    span and feeds the per-token decode latency histogram. Call it once
+    the tokens are on the host (`generate()` fetches them first, so the
+    queued work has run). No-op for a None handle."""
+    if start is None:
+        return
+    telemetry = sys.modules.get("cloud_tpu_torch.monitoring.telemetry")
+    tele = None if telemetry is None else telemetry.get()
+    if tele is None or not tele.active:
+        return
+    elapsed_ns = time.monotonic_ns() - start
+    from cloud_tpu_torch.monitoring import spans
+
+    spans.complete("decode", start, elapsed_ns)
+    tele.observe_decode(n_tokens, elapsed_ns / 1e9)
 
 
 def prefill_request(model, prompt, seed, sampling):
@@ -261,7 +382,9 @@ def _quantize_chunks(chunks, valid):
     return q.to(torch.int8), scale
 
 
-__all__ = ["bucket_length", "decode_slot_update", "empty_cache",
-           "paged_slot_update", "prefill_request", "sample_one",
-           "sample_seeds", "sample_slots", "scatter_prefill",
+__all__ = ["acquire_cache", "bucket_length", "clear_cache_pool",
+           "decode_latency_finish", "decode_latency_start",
+           "decode_slot_update", "dense_cache_layer", "empty_cache",
+           "paged_slot_update", "prefill_request", "release_cache",
+           "sample_one", "sample_seeds", "sample_slots", "scatter_prefill",
            "validate_prompt_mask", "warp_logits"]

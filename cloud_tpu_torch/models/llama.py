@@ -1,5 +1,6 @@
 """Llama-family decoder LM (RMSNorm, RoPE, SwiGLU, grouped-query
-attention); the port of `cloud_tpu/models/llama.py`, training forward.
+attention); the port of `cloud_tpu/models/llama.py`: the training
+forward and decode over a dense KV cache (`generate()`).
 
 Parameters are float32; the forward runs in `compute_dtype` as the JAX
 model does: the embedding output and the residual stream are in the
@@ -22,10 +23,18 @@ Dropout draws from the caller's `torch.Generator` (the Trainer's, seeded
 from its seed and the step) when the forward is called with
 `deterministic=False`.
 
-Not ported (ROADMAP "Modules to port"): decode and `generate()`
-(`decode=True`), the mixture-of-experts MLP (`moe_experts > 0`) and the
-sequence-parallel attention impls ("ring", "ulysses"); all raise
-NotImplementedError.
+With a cache dict (`init_cache(batch)`), a forward call decodes and
+updates the cache in place (no gradients), as the JAX model does with
+`decode=True`: per layer a slot-addressed K/V cache at H_kv width, RoPE
+and the window band on each example's logical positions (real tokens
+only, `decoding.decode_slot_update`), and the grouped attention product
+in plain PyTorch with f32 logits and softmax (the JAX decode attention
+is jnp, not a Pallas kernel). The norms and the MLP run the same fused
+kernels as training, at rows = batch x tokens of the call.
+
+Not ported (ROADMAP "Modules to port"): the mixture-of-experts MLP
+(`moe_experts > 0`) and the sequence-parallel attention impls ("ring",
+"ulysses"); both raise NotImplementedError.
 """
 
 import math
@@ -36,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cloud_tpu_torch.models import decoding
 from cloud_tpu_torch.models.transformer import _ComputeWeights, _dropout
 from cloud_tpu_torch.ops import attention as attention_ops
 from cloud_tpu_torch.ops import fused_mlp as mlp_ops
@@ -146,8 +156,11 @@ def apply_rope(x, positions, theta=10000.0, style="interleaved",
         raise ValueError("RoPE needs an even head_dim; got %d." % head_dim)
     exponents = -torch.arange(0, head_dim, 2, dtype=torch.float32,
                               device=x.device) / head_dim
-    freqs = torch.pow(torch.tensor(float(theta), dtype=torch.float32,
-                                   device=x.device), exponents)
+    # theta as a 0-d CPU tensor: a CUDA op reads it on the host, where a
+    # copy to the card would wait for all queued work (decode runs this
+    # twice a layer per token).
+    freqs = torch.pow(torch.tensor(float(theta), dtype=torch.float32),
+                      exponents)
     if scaling is not None:
         freqs = _scale_rope_freqs(freqs, scaling, theta, head_dim)
     positions = torch.as_tensor(positions, device=x.device)
@@ -209,7 +222,8 @@ def _sub_impl(attention_impl):
 
 
 class GQAttention(nn.Module):
-    """Grouped-query attention with RoPE (training forward)."""
+    """Grouped-query attention with RoPE and an H_kv-wide decode
+    cache."""
 
     def __init__(self, d_model, num_heads, num_kv_heads, cast,
                  attention_impl="auto", rope_theta=10000.0,
@@ -257,25 +271,83 @@ class GQAttention(nn.Module):
         y = F.linear(x, cast(layer.weight), cast(layer.bias))
         return y.view(x.shape[0], x.shape[1], heads, self.head_dim)
 
-    def forward(self, x, mask=None):
+    def _rope(self, x, positions):
+        return apply_rope(x, positions, self.rope_theta, self.rope_style,
+                          self.rope_scaling)
+
+    def forward(self, x, mask=None, cache=None):
+        """Without `cache`: training attention at positions 0..S-1, mask
+        (optional [B, S]) marking the keys attention may see. With a
+        layer's dense `cache`: decode (`_decode_attention`), mask marking
+        the REAL incoming tokens."""
         q = self._project(self.query, x, self.num_heads)
         k = self._project(self.key, x, self.num_kv_heads)
         v = self._project(self.value, x, self.num_kv_heads)
         if self.qk_norm:
-            # Plain, as in JAX (nn.RMSNorm over head_dim).
+            # Plain, as in JAX (nn.RMSNorm over head_dim), before RoPE.
             q = self.q_norm.plain(q)
             k = self.k_norm.plain(k)
-        positions = torch.arange(x.shape[1], device=x.device)
-        q = apply_rope(q, positions, self.rope_theta, self.rope_style,
-                       self.rope_scaling)
-        k = apply_rope(k, positions, self.rope_theta, self.rope_style,
-                       self.rope_scaling)
-        out = attention_ops.attention(
-            q, k, v, causal=True, mask=mask,
-            sm_scale=self.attn_scale, window=self.sliding_window,
-            logit_softcap=self.logit_softcap, impl=self.attention_impl)
+        if cache is not None:
+            out = self._decode_attention(q, k, v, mask, cache)
+        else:
+            positions = torch.arange(x.shape[1], device=x.device)
+            q = self._rope(q, positions)
+            k = self._rope(k, positions)
+            out = attention_ops.attention(
+                q, k, v, causal=True, mask=mask,
+                sm_scale=self.attn_scale, window=self.sliding_window,
+                logit_softcap=self.logit_softcap, impl=self.attention_impl)
         out = out.to(self._cast.dtype).reshape(x.shape[0], x.shape[1], -1)
         return F.linear(out, self._cast(self.out.weight))
+
+    def _decode_attention(self, q, k, v, mask, cache):
+        """Attention over the dense cache, one path for prefill (the
+        whole prompt at index 0) and single-token steps.
+
+        The cache is slot-addressed (write pointer `cache_index`), and
+        RoPE and the window band use each example's logical positions
+        (`slot_pos`, real tokens only), so a left-padded prompt rotates
+        and bands as its unpadded rows would; padded slots are never
+        attended. q attends its own kv head as [B, S, H_kv, G, D] (no
+        repeat of the cache), with f32 logits from f32 copies of q and
+        the cache (JAX's preferred_element_type=f32), the softcap, masked
+        logits -1e30 and an f32 softmax whose weights are rounded to the
+        compute dtype before the product with V. The products read only
+        the written prefix [:idx + S] of the cache: every slot past it is
+        masked, so the result is JAX's, which reads all L."""
+        batch, seq, heads, head_dim = q.shape
+        cache_len = cache["cached_key"].shape[1]
+        idx, positions, allowed = decoding.decode_slot_update(
+            cache, mask, batch, seq, cache_len)
+        q = self._rope(q, positions)
+        k = self._rope(k, positions)
+        dtype = self._cast.dtype
+        end = idx + seq
+        cache["cached_key"][:, idx:end] = k.to(dtype)
+        cache["cached_value"][:, idx:end] = v.to(dtype)
+        keys = cache["cached_key"][:, :end]
+        values = cache["cached_value"][:, :end]
+        allowed = allowed[:, :, :end]
+        if self.sliding_window:
+            # Keys in (pos - window, pos] on logical positions; older
+            # cached entries are masked, not evicted.
+            allowed = allowed & (cache["slot_pos"][:, None, :end]
+                                 > positions[:, :, None]
+                                 - self.sliding_window)
+        scale = self.attn_scale or 1.0 / math.sqrt(head_dim)
+        group = heads // self.num_kv_heads
+        qg = q.reshape(batch, seq, self.num_kv_heads, group, head_dim)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                              keys.float()) * scale
+        if self.logit_softcap:
+            cap = float(self.logit_softcap)
+            logits = cap * torch.tanh(logits / cap)
+        logits = torch.where(allowed[:, None, None], logits,
+                             torch.full((), -1e30, device=logits.device))
+        weights = torch.softmax(logits, dim=-1).to(dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", weights.float(),
+                           values.float())
+        return out.reshape(batch, seq, heads, head_dim).to(dtype)
 
 
 class SwiGLU(nn.Module):
@@ -337,13 +409,16 @@ class LlamaBlock(nn.Module):
             self.norm_attn_post = norm()
             self.norm_mlp_post = norm()
 
-    def forward(self, x, mask=None, generator=None):
+    def forward(self, x, mask=None, generator=None, cache=None):
         """generator: a `torch.Generator` on x's device when dropout is
-        on for this call (None = deterministic)."""
-        y = self.attention(self.norm_attn(x), mask)
+        on for this call (None = deterministic). cache: this layer's
+        decode cache (None = training forward); decode runs without
+        dropout and so on the fused tail, as the JAX decoder (cloned
+        with dropout_rate 0) does."""
+        y = self.attention(self.norm_attn(x), mask, cache)
         if self.post_norms:
             y = self.norm_attn_post.plain(y)
-        if self.dropout_rate:
+        if self.dropout_rate and cache is None:
             # Dropout sits between the sublayer output and the residual
             # add, so the fused tail does not apply.
             if generator is not None:
@@ -361,13 +436,15 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaLM(nn.Module):
-    """Llama-style decoder-only LM (training forward).
+    """Llama-style decoder-only LM.
 
     The attribute names and defaults are the JAX `LlamaLM`'s, plus
     `device` (default: the CUDA card; raises without one) and `seed`:
     weights are drawn from it (normal, std 0.02; biases 0, norm scales
     1). Load real ones with `load_state_dict` (see
-    `llama_params_from_flax`).
+    `llama_params_from_flax`, `import_hf_llama`). `decode` is kept for
+    the JAX signature: the port decodes whenever `forward` is given a
+    cache (`init_cache`), and `generate()` drives that.
     """
 
     def __init__(self, vocab_size=32000, num_layers=4, num_heads=8,
@@ -384,10 +461,6 @@ class LlamaLM(nn.Module):
                  moe_capacity_factor=2.0, moe_norm_topk=True, device=None,
                  seed=0):
         super().__init__()
-        if decode:
-            raise NotImplementedError(
-                "LlamaLM decode and generate() are not ported yet (ROADMAP: "
-                "Modules to port, item 1, Llama decode).")
         if moe_experts:
             raise NotImplementedError(
                 "the mixture-of-experts MLP (moe_experts > 0) is not ported "
@@ -406,6 +479,7 @@ class LlamaLM(nn.Module):
         self.dropout_rate = float(dropout_rate)
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
+        self.decode = bool(decode)
         self.head_dim = head_dim or d_model // num_heads
         self.rope_scaling = rope_scaling
         self.sliding_window = sliding_window
@@ -441,7 +515,8 @@ class LlamaLM(nn.Module):
                                        device=device)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False,
                                  device=device)
-        self.reset_parameters(seed)
+        if seed is not None:
+            self.reset_parameters(seed)
 
     @property
     def device(self):
@@ -480,26 +555,57 @@ class LlamaLM(nn.Module):
                 value = torch.randn(p.shape, generator=gen) * 0.02
             p.copy_(value)
 
-    def forward(self, tokens, mask=None, deterministic=True, generator=None):
-        """tokens [B, S] -> f32 logits [B, S, V]: the training/scoring
-        forward at positions 0..S-1; mask (optional [B, S] bool) marks
-        the keys attention may see; `deterministic=False` with
-        `generator` (a `torch.Generator` on the model's device) applies
-        dropout."""
+    def init_cache(self, batch):
+        """A zeroed dense decode cache for `batch` rows: per layer K/V
+        [batch, max_seq_len, H_kv, head_dim] in the compute dtype and the
+        slot bookkeeping (`decoding.dense_cache_layer`)."""
+        return {"layers": [decoding.dense_cache_layer(self, batch)
+                           for _ in range(self.num_layers)]}
+
+    def forward(self, tokens, mask=None, cache=None, deterministic=True,
+                generator=None):
+        """tokens [B, S] -> f32 logits [B, S, V].
+
+        Without `cache`: the training/scoring forward at positions
+        0..S-1; mask (optional [B, S] bool) marks the keys attention may
+        see; `deterministic=False` with `generator` (a `torch.Generator`
+        on the model's device) applies dropout.
+
+        With `cache` (`init_cache`): decode, appending to the cache,
+        without gradients. mask marks REAL incoming tokens: positions
+        count only real tokens, so a left-padded prompt rotates as its
+        unpadded rows would.
+        """
         seq = tokens.shape[1]
         if seq > self.max_seq_len:
             raise ValueError(
                 "Sequence length {} exceeds max_seq_len {}.".format(
                     seq, self.max_seq_len))
-        dtype = self.compute_dtype
+        if cache is not None:
+            with torch.no_grad():
+                x = self._embed(tokens)
+                for block, layer_cache in zip(self.blocks, cache["layers"]):
+                    x = block(x, mask, cache=layer_cache)
+                return self._head(x)
         gen = None if deterministic else generator
-        x = self.embed.weight[tokens].to(dtype)
-        if self.scale_embed:
-            # The normalizer is rounded to the compute dtype first.
-            x = x * torch.tensor(math.sqrt(self.d_model), dtype=dtype,
-                                 device=x.device)
+        x = self._embed(tokens)
         for block in self.blocks:
             x = block(x, mask, generator=gen)
+        return self._head(x)
+
+    def _embed(self, tokens):
+        dtype = self.compute_dtype
+        x = self.embed.weight[tokens].to(dtype)
+        if self.scale_embed:
+            # The normalizer is rounded to the compute dtype first (a 0-d
+            # CPU tensor, read on the host, as theta in apply_rope).
+            x = x * torch.tensor(math.sqrt(self.d_model), dtype=dtype)
+        return x
+
+    def _head(self, x):
+        """The final norm and the head in the compute dtype, then f32
+        logits (soft-capped with `final_logit_softcap`), as in JAX and in
+        training and decode alike."""
         x = self.norm_final(x)
         logits = F.linear(x, self._cast(self.lm_head.weight)).float()
         if self.final_logit_softcap:

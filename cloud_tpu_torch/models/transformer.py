@@ -289,7 +289,8 @@ class TransformerLM(nn.Module):
         self.ln_final = nn.LayerNorm(d_model, eps=norm_eps, device=device)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False,
                                  device=device)
-        self.reset_parameters(seed)
+        if seed is not None:
+            self.reset_parameters(seed)
 
     @property
     def device(self):
@@ -323,20 +324,7 @@ class TransformerLM(nn.Module):
         layers = []
         for _ in range(self.num_layers):
             if not page_size:
-                shape = (batch, L, heads, head_dim)
-                layers.append({
-                    "cached_key": torch.zeros(shape, dtype=self.compute_dtype,
-                                              device=dev),
-                    "cached_value": torch.zeros(
-                        shape, dtype=self.compute_dtype, device=dev),
-                    "cache_index": 0,
-                    "slot_valid": torch.zeros((batch, L), dtype=torch.bool,
-                                              device=dev),
-                    "slot_pos": torch.zeros((batch, L), dtype=torch.int32,
-                                            device=dev),
-                    "token_count": torch.zeros((batch,), dtype=torch.int32,
-                                               device=dev),
-                })
+                layers.append(decoding.dense_cache_layer(self, batch))
                 continue
             if L % page_size:
                 raise ValueError(
@@ -433,20 +421,26 @@ DECODE_ROW_ALIGN = 8
 @torch.no_grad()
 def generate(model, prompt, max_new_tokens, seed=None, temperature=1.0,
              top_k=None, top_p=None, eos_token=None, prompt_mask=None,
-             page_size=16, kv_dtype=""):
+             page_size=16, kv_dtype="", bucket_prompts=True):
     """Autoregressive sampling with a KV cache.
 
-    The port of `cloud_tpu.models.transformer.generate`. It decodes the
-    way the serving engine does, so a request served by `Scheduler`
-    equals this function's output for it: each row prefills alone
-    (`decoding.prefill_request`: its real tokens right-padded to a pow2
-    bucket), is scattered into its own pages of a pool
-    (`decoding.scatter_prefill`), and the rows then decode together as
-    slots of that pool through `ops.paged_attention`, one token per
-    step, the batch padded to `DECODE_ROW_ALIGN` rows.
+    The port of `cloud_tpu.models.transformer.generate`, by model:
+
+    - A `TransformerLM` decodes the way the serving engine does, so a
+      request served by `Scheduler` equals this function's output for
+      it: each row prefills alone (`decoding.prefill_request`: its real
+      tokens right-padded to a pow2 bucket), is scattered into its own
+      pages of a pool (`decoding.scatter_prefill`), and the rows then
+      decode together as slots of that pool through
+      `ops.paged_attention`, one token per step, the batch padded to
+      `DECODE_ROW_ALIGN` rows.
+    - A model without a paged cache (`LlamaLM`) follows the JAX route
+      over a dense cache (`decoding.acquire_cache`): the prompt
+      left-padded to its bucket (`bucket_prompts`), one prefill of the
+      whole batch, then single-token steps.
 
     Args:
-        model: A `TransformerLM`.
+        model: A `TransformerLM` or `LlamaLM`.
         prompt: [B, S] int prompt tokens (S >= 1).
         max_new_tokens: tokens to sample beyond the prompt.
         seed: int sampling seed; required unless temperature == 0. Row
@@ -459,7 +453,13 @@ def generate(model, prompt, max_new_tokens, seed=None, temperature=1.0,
         prompt_mask: optional [B, S] bool marking REAL tokens; prompts
             must be LEFT-padded (last column real).
         page_size, kv_dtype: the page pool's geometry and page dtype
-            ("" = compute dtype, "int8" = quantized pages).
+            ("" = compute dtype, "int8" = quantized pages); paged route
+            only.
+        bucket_prompts: dense route: left-pad the prompt to
+            `decoding.bucket_length(S, max_seq_len - max_new_tokens)`
+            before the prefill (the mask keeps the pad out of attention
+            and positions, so the tokens do not change); False prefills
+            at S.
 
     Returns:
         [B, S + max_new_tokens] int64 CPU tensor: prompt + continuation.
@@ -484,9 +484,8 @@ def generate(model, prompt, max_new_tokens, seed=None, temperature=1.0,
     if top_p is not None and not 0.0 < top_p <= 1.0:
         raise ValueError(
             "top_p must be in (0, 1]; got {}.".format(top_p))
-    if prompt_mask is None:
-        real = np.ones((batch, prompt_len), bool)
-    else:
+    real = None
+    if prompt_mask is not None:
         decoding.validate_prompt_mask(prompt_mask, batch, prompt_len,
                                       "sampling")
         real = np.asarray(torch.as_tensor(prompt_mask).cpu(), bool)
@@ -494,7 +493,76 @@ def generate(model, prompt, max_new_tokens, seed=None, temperature=1.0,
                                   max_new_tokens)
     sampling = {"temperature": float(temperature), "top_k": top_k,
                 "top_p": top_p}
+    if not isinstance(model, TransformerLM):
+        tokens = _generate_dense(model, prompt, real, max_new_tokens, seeds,
+                                 sampling, eos_token, bucket_prompts)
+    else:
+        if real is None:
+            real = np.ones((batch, prompt_len), bool)
+        tokens = _generate_paged(model, prompt, real, max_new_tokens, seeds,
+                                 sampling, eos_token, page_size, kv_dtype)
+    return torch.from_numpy(np.concatenate([prompt, tokens], axis=1))
 
+
+def _sample_rows(logits, seeds, sampling):
+    """One draw for each row of [R, V] logits (`decoding.sample_slots`)."""
+    rows = logits.shape[0]
+    return decoding.sample_slots(
+        logits, seeds, [sampling["temperature"]] * rows,
+        [sampling["top_k"]] * rows, [sampling["top_p"]] * rows)
+
+
+def _stop_at_eos(nxt, done, eos_token):
+    """Rows already done emit eos_token; returns (tokens, done)."""
+    if eos_token is None:
+        return nxt, done
+    nxt = torch.where(done, torch.full_like(nxt, eos_token), nxt)
+    return nxt, done | (nxt == eos_token)
+
+
+def _generate_dense(model, prompt, real, max_new_tokens, seeds, sampling,
+                    eos_token, bucket_prompts):
+    """generate()'s route over a dense cache (the JAX one): the whole
+    batch prefills once, left-padded to its bucket, then decodes one
+    token a step. Returns the [B, max_new_tokens] tokens (numpy)."""
+    batch, prompt_len = prompt.shape
+    tokens, mask = prompt, real
+    if bucket_prompts:
+        bucket = decoding.bucket_length(prompt_len,
+                                        model.max_seq_len - max_new_tokens)
+        if bucket > prompt_len:
+            pad = ((0, 0), (bucket - prompt_len, 0))
+            tokens = np.pad(prompt, pad)
+            mask = np.pad(np.ones((batch, prompt_len), bool)
+                          if real is None else real, pad)
+    dev = model.device
+    cache = decoding.acquire_cache(model, batch)
+    latency = decoding.decode_latency_start()
+    logits = model(torch.from_numpy(tokens).to(dev),
+                   None if mask is None else torch.from_numpy(mask).to(dev),
+                   cache)
+    cur = _sample_rows(logits[:, -1], seeds[:, 0], sampling)
+    done = torch.zeros((batch,), dtype=torch.bool, device=dev)
+    if eos_token is not None:
+        done = cur == eos_token
+    out = [cur]
+    for step in range(1, max_new_tokens):
+        logits = model(cur[:, None], None, cache)[:, 0]
+        cur, done = _stop_at_eos(_sample_rows(logits, seeds[:, step],
+                                              sampling), done, eos_token)
+        out.append(cur)
+    result = runtime.device_fetch(torch.stack(out, dim=1))
+    decoding.release_cache(model, batch, cache)
+    decoding.decode_latency_finish(latency, max_new_tokens)
+    return result
+
+
+def _generate_paged(model, prompt, real, max_new_tokens, seeds, sampling,
+                    eos_token, page_size, kv_dtype):
+    """generate()'s route over a page pool (the serving engine's), for a
+    `TransformerLM`. Returns the [B, max_new_tokens] tokens (numpy)."""
+    batch = prompt.shape[0]
+    temperature = sampling["temperature"]
     slots = -(-batch // DECODE_ROW_ALIGN) * DECODE_ROW_ALIGN
     pages_per_slot = model.max_seq_len // page_size
     cache = model.init_cache(slots, page_size=page_size,
@@ -521,14 +589,11 @@ def generate(model, prompt, max_new_tokens, seed=None, temperature=1.0,
         logits = model(cur[:, None], active, cache)[:, 0]
         step_seeds[:batch] = seeds[:, step]
         nxt = decoding.sample_slots(logits, step_seeds, temps,
-                                    [top_k] * slots, [top_p] * slots)
-        if eos_token is not None:
-            nxt = torch.where(done, torch.full_like(nxt, eos_token), nxt)
-            done = done | (nxt == eos_token)
-        out.append(nxt)
-        cur = nxt
-    tokens = runtime.device_fetch(torch.stack(out, dim=1)[:batch])
-    return torch.from_numpy(np.concatenate([prompt, tokens], axis=1))
+                                    [sampling["top_k"]] * slots,
+                                    [sampling["top_p"]] * slots)
+        cur, done = _stop_at_eos(nxt, done, eos_token)
+        out.append(cur)
+    return runtime.device_fetch(torch.stack(out, dim=1)[:batch])
 
 
 __all__ = ["CausalSelfAttention", "DECODE_ROW_ALIGN", "TransformerBlock",

@@ -1,9 +1,17 @@
 """The latency histogram the serving scheduler keeps (TTFT, tick
 latency, queue wait): the `Histogram` of
-`cloud_tpu/monitoring/telemetry.py`, copied."""
+`cloud_tpu/monitoring/telemetry.py`, copied; and the part of its
+telemetry session the port has so far, the per-token decode latency
+that `generate()` feeds (`enable`, `disable`, `get`, `enabled`). The
+registry, tracer, exporters and the environment contract are not
+ported (ROADMAP: Modules to port, item 8).
+"""
 
 import bisect
 import threading
+
+#: The per-token decode latency histogram's name (the JAX package's).
+DECODE_TOKEN_HISTOGRAM = "cloud_tpu_decode_token_latency_seconds"
 
 
 class Histogram:
@@ -93,4 +101,53 @@ class Histogram:
         }
 
 
-__all__ = ["Histogram"]
+class Telemetry:
+    """One enabled telemetry session: here, its decode-latency
+    histogram."""
+
+    def __init__(self):
+        self.decode_token_latency = Histogram(DECODE_TOKEN_HISTOGRAM)
+        self.active = True
+
+    def observe_decode(self, n_tokens, elapsed_secs):
+        """One observation per generated token at the call's mean
+        per-token latency."""
+        n_tokens = int(n_tokens)
+        if n_tokens > 0:
+            self.decode_token_latency.observe(
+                float(elapsed_secs) / n_tokens, count=n_tokens)
+
+
+_telemetry = None
+_enable_lock = threading.Lock()
+
+
+def enable():
+    """Enables the ambient session (idempotent) and returns it."""
+    global _telemetry
+    with _enable_lock:
+        if _telemetry is None:
+            _telemetry = Telemetry()
+        return _telemetry
+
+
+def disable():
+    """Ends the ambient session."""
+    global _telemetry
+    with _enable_lock:
+        tele, _telemetry = _telemetry, None
+    if tele is not None:
+        tele.active = False
+
+
+def get():
+    """The ambient session, or None when disabled."""
+    return _telemetry
+
+
+def enabled():
+    return _telemetry is not None and _telemetry.active
+
+
+__all__ = ["DECODE_TOKEN_HISTOGRAM", "Histogram", "Telemetry", "disable",
+           "enable", "enabled", "get"]

@@ -1,7 +1,9 @@
 """Kernels of the PyTorch port, each beside its plain PyTorch version.
 
-`paged_attention` launches the hand-written CUDA kernel on CUDA tensors
-and runs `paged_attention_reference` on CPU tensors; `flash_attention`
+`paged_attention` (also under the JAX package's name,
+`paged_decode_attention`) launches the hand-written CUDA kernel on CUDA
+tensors and runs `paged_attention_reference` on CPU tensors;
+`flash_attention`
 (and the dispatcher `ops.attention.attention`) launch the flash kernels
 (forward, dq, dk/dv) on CUDA tensors and run `mha_reference` on CPU
 tensors; `fused_rmsnorm` launches the fused residual-add + RMSNorm
@@ -23,9 +25,10 @@ from cloud_tpu_torch.ops.fused_norm import rmsnorm_residual_reference
 from cloud_tpu_torch.ops.paged_attention import paged_attention
 from cloud_tpu_torch.ops.paged_attention import paged_attention_cost
 from cloud_tpu_torch.ops.paged_attention import paged_attention_reference
+from cloud_tpu_torch.ops.paged_attention import paged_decode_attention
 
 __all__ = ["attention", "flash_attention", "flash_attention_cost",
            "fused_mlp_cost", "fused_norm_cost", "fused_rmsnorm", "fused_swiglu",
            "mha_reference", "paged_attention", "paged_attention_cost",
-           "paged_attention_reference", "rmsnorm_residual_reference",
-           "swiglu_reference"]
+           "paged_attention_reference", "paged_decode_attention",
+           "rmsnorm_residual_reference", "swiglu_reference"]

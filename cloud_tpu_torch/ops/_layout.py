@@ -5,9 +5,12 @@ The kernels read their operands as dense row-major arrays, with TMA or
 aligned bases. JAX arrays have no strides; a PyTorch tensor may be a
 transposed or offset view. `dense` hands such a view to the same kernel
 as a fresh contiguous copy, and a tensor that is already fine unchanged.
+`pad_last` gives a kernel whose rows must be 16 bytes apart a zero-padded
+copy of a tensor whose last dimension is not a multiple of 8 values.
 """
 
 import torch
+import torch.nn.functional as F
 
 
 def dense(t):
@@ -21,4 +24,12 @@ def dense(t):
     return out.copy_(t)
 
 
-__all__ = ["dense"]
+def pad_last(t, multiple):
+    """`t` itself when its last dimension is a multiple of `multiple`;
+    otherwise a copy zero-padded there to the next multiple. The copy is
+    differentiable, so gradients reach `t` (the pad's are dropped)."""
+    pad = -t.shape[-1] % multiple
+    return F.pad(t, (0, pad)) if pad else t
+
+
+__all__ = ["dense", "pad_last"]

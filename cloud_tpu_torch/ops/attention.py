@@ -20,10 +20,15 @@ Gemma2-style `logit_softcap` (cap * tanh(s / cap) after the scale,
 before masking). A query row with no allowed key comes out as zeros and
 passes no gradient, in both versions.
 
-The kernels take bf16 or f32 q/k/v (all one type) with head_dim 64, 128
-or 256, accumulate in f32 and return the input type; anything else
-raises. An operand (q, k, v or the backward's dO) that is not contiguous
-or not 16-byte aligned goes to the kernels as a contiguous copy.
+The kernels take bf16 or f32 q/k/v (all one type) with any head_dim up
+to 256, accumulate in f32 and return the input type; anything else
+raises. A head_dim that is a multiple of 8 runs at the next template
+width (64, 128 or 256) on zero-filled columns past D; any other head_dim
+goes to the kernels as a copy zero-padded to the next multiple of 8
+(`_layout.pad_last`: TMA takes rows 16 bytes apart), whose output is
+sliced back to D. The default sm_scale is 1/sqrt(D) of the true D. An
+operand (q, k, v or the backward's dO) that is not contiguous or not
+16-byte aligned goes to the kernels as a contiguous copy.
 """
 
 import ctypes
@@ -31,7 +36,7 @@ import math
 
 import torch
 
-from cloud_tpu_torch.ops._layout import dense
+from cloud_tpu_torch.ops._layout import dense, pad_last
 
 _NEG_INF = -1e30
 
@@ -41,7 +46,8 @@ launches = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkdv": 0}
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+#: The widest head_dim the kernels take (their widest template).
+MAX_HEAD_DIM = 256
 
 
 def reset_launches():
@@ -193,7 +199,7 @@ def _library(dtype):
 
 def _check_kernel_operands(q, k, v, mask):
     """What the CUDA kernels take: one CUDA device, one dtype (f32 or
-    bf16), head_dim 64, 128 or 256."""
+    bf16), head_dim from 1 to MAX_HEAD_DIM."""
     for t in (k, v) + (() if mask is None else (mask,)):
         if t.device != q.device:
             raise ValueError("flash_attention operands must share one "
@@ -203,9 +209,9 @@ def _check_kernel_operands(q, k, v, mask):
         raise ValueError(
             "the CUDA kernels take q/k/v all float32 or all bfloat16; "
             "got {}, {}, {}.".format(q.dtype, k.dtype, v.dtype))
-    if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError("the CUDA kernels take head_dim in {}; got "
-                         "{}.".format(_HEAD_DIMS, q.shape[-1]))
+    if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
+        raise ValueError("the CUDA kernels take head_dim from 1 to {}; got "
+                         "{}.".format(MAX_HEAD_DIM, q.shape[-1]))
     if q.shape[-1] != k.shape[-1] or q.shape[1] != k.shape[1] \
             or q.shape[0] != k.shape[0]:
         raise ValueError("q [B, S, H, D] and k/v [B, S, H_kv, D] must "
@@ -314,7 +320,8 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, mask=None,
     Args:
         q: [B, S, H, D]; k, v: [B, S, H_kv, D] (H a multiple of H_kv).
         causal: apply the causal mask.
-        sm_scale: softmax temperature; default 1/sqrt(D).
+        sm_scale: softmax temperature; default 1/sqrt(D) (the true D,
+            also when the kernels run on a zero-padded copy).
         mask: optional [B, S] bool key mask (True = attend).
         window: sliding-window width (causal only); None/0 = off.
         logit_softcap: tanh logit cap; None/0 = off.
@@ -337,10 +344,12 @@ def flash_attention(q, k, v, causal=True, sm_scale=None, mask=None,
     if mask is not None:
         mask = mask.to(torch.bool).contiguous()
     _check_kernel_operands(q, k, v, mask)
-    q, k, v = dense(q), dense(k), dense(v)
+    head_dim = q.shape[-1]
+    q, k, v = (dense(pad_last(t, 8)) for t in (q, k, v))
     config = (bool(causal), float(sm_scale), int(window or 0),
               float(logit_softcap or 0.0))
-    return _FlashAttention.apply(q, k, v, mask, config)
+    out = _FlashAttention.apply(q, k, v, mask, config)
+    return out if out.shape[-1] == head_dim else out[..., :head_dim]
 
 
 def attention(q, k, v, causal=True, sm_scale=None, mask=None, window=None,

@@ -18,7 +18,12 @@
 //   k, v, dk, dv       [B, S, H_kv, D]   the same type
 //   mask               [B, S] bytes (0 = masked key) or null
 //   lse, delta         [B, H, S] f32
-// D is 64, 128 or 256. Accumulation is f32; outputs are in the input type.
+// D is any multiple of 8 up to 256, run at the next template width of 64,
+// 128 and 256 (`template_width`): the tensor maps span the true D, TMA
+// zero-fills each box's columns past it (a box wholly past it is not
+// loaded and stays zero), so S and dP are exact, and the epilogues write
+// only the first D columns of out, dq, dk and dv. Accumulation is f32;
+// outputs are in the input type.
 //
 // Design. The TPU kernels walk a sequential grid and carry acc/m/l (or the
 // dq, dk, dv accumulators) in VMEM scratch between grid steps. Blocks on the
@@ -237,6 +242,33 @@ __device__ __forceinline__ void next_stage(int& stage, uint32_t& phase,
   }
 }
 
+// Boxes of 64 columns that hold any of head_dim's columns; TMA loads only
+// these. Only the D 256 template can have a box wholly past head_dim (for
+// head_dim <= 192; the 128 template runs head_dim 72..128, two live
+// boxes): such a box is never loaded, and `zero_dead_boxes` zeroes it
+// once, before the first TMA.
+template <int D>
+__device__ __forceinline__ int live_boxes(const Params& p) {
+  return D == 256 ? (p.dim + 63) / 64 : D / 64;
+}
+
+// Zeroes boxes [live, boxes) of `n` tiles laid out `tile` bytes apart from
+// `base` (boxes of `box` bytes), by every thread of the block, and makes
+// the zeros visible to the async proxy that wgmma reads shared memory
+// through. The caller's __syncthreads follows.
+__device__ __forceinline__ void zero_dead_boxes(unsigned char* base, int n,
+                                                uint32_t tile, uint32_t box,
+                                                int live, int boxes) {
+  if (live >= boxes) return;
+  for (int i = 0; i < n; ++i)
+    for (int x = live; x < boxes; ++x) {
+      uint4* dst = reinterpret_cast<uint4*>(base + i * tile + x * box);
+      for (uint32_t j = threadIdx.x; j < box / 16; j += blockDim.x)
+        dst[j] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  sm90::fence_proxy_async();
+}
+
 // Issues s = A . B^T over D for one consumer (no commit): A (64 rows) and
 // B (N rows) are tiles of D / 64 boxes `a_box` and `b_box` values apart.
 template <int D, int NT>
@@ -318,6 +350,10 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
   int k_hi = k_lo;
   while (k_hi < S && tile_live(p, q0, T::kM, k_hi, T::kN)) k_hi += T::kN;
   const int wg = threadIdx.x / kWg;
+  const int live = live_boxes<D>(p);
+  zero_dead_boxes(smem, 1, T::kQ, T::kM * kBoxRow, live, T::kBoxes);
+  zero_dead_boxes(ring, 2 * T::kStages, T::kKV, T::kN * kBoxRow, live,
+                  T::kBoxes);
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
@@ -334,8 +370,8 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
     const int lane = threadIdx.x;
     if (lane < 32) {
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(q_full, T::kQ);
-        for (int x = 0; x < T::kBoxes; ++x)
+        sm90::mbar_arrive_expect_tx(q_full, live * T::kM * kBoxRow);
+        for (int x = 0; x < live; ++x)
           sm90::tma_load_4d(q_s + x * T::kM * 64, &map_q, q_full, x * 64, h,
                             q0, b);
       }
@@ -345,10 +381,11 @@ __global__ void __launch_bounds__(FwdTiles<D>::kThreads, 1)
         sm90::mbar_wait(&empty[stage], phase ^ 1);
         load_key_flags(flags + stage * T::kN, p, b, k0, T::kN, lane, 32);
         if (lane == 0) {
-          sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::kKV);
+          sm90::mbar_arrive_expect_tx(&full[stage],
+                                      2 * live * T::kN * kBoxRow);
           bf16* k_s = reinterpret_cast<bf16*>(ring + stage * 2 * T::kKV);
           bf16* v_s = k_s + T::kKV / sizeof(bf16);
-          for (int x = 0; x < T::kBoxes; ++x) {
+          for (int x = 0; x < live; ++x) {
             sm90::tma_load_4d(k_s + x * T::kN * 64, &map_k, &full[stage],
                               x * 64, hk, k0, b);
             sm90::tma_load_4d(v_s + x * T::kN * 64, &map_v, &full[stage],
@@ -445,6 +482,10 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
   int k_hi = k_lo;
   while (k_hi < S && tile_live(p, q0, T::kM, k_hi, T::kN)) k_hi += T::kN;
   const int wg = threadIdx.x / kWg;
+  const int live = live_boxes<D>(p);
+  zero_dead_boxes(smem, 2, T::kQ, T::kM * kBoxRow, live, T::kBoxes);
+  zero_dead_boxes(ring, 2 * T::kStages, T::kKV, T::kN * kBoxRow, live,
+                  T::kBoxes);
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(qdo_full, 1);
@@ -461,8 +502,8 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
     const int lane = threadIdx.x;
     if (lane < 32) {
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(qdo_full, 2 * T::kQ);
-        for (int x = 0; x < T::kBoxes; ++x) {
+        sm90::mbar_arrive_expect_tx(qdo_full, 2 * live * T::kM * kBoxRow);
+        for (int x = 0; x < live; ++x) {
           sm90::tma_load_4d(q_s + x * T::kM * 64, &map_q, qdo_full, x * 64,
                             h, q0, b);
           sm90::tma_load_4d(do_s + x * T::kM * 64, &map_do, qdo_full,
@@ -475,10 +516,11 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
         sm90::mbar_wait(&empty[stage], phase ^ 1);
         load_key_flags(flags + stage * T::kN, p, b, k0, T::kN, lane, 32);
         if (lane == 0) {
-          sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::kKV);
+          sm90::mbar_arrive_expect_tx(&full[stage],
+                                      2 * live * T::kN * kBoxRow);
           bf16* k_s = reinterpret_cast<bf16*>(ring + stage * 2 * T::kKV);
           bf16* v_s = k_s + T::kKV / sizeof(bf16);
-          for (int x = 0; x < T::kBoxes; ++x) {
+          for (int x = 0; x < live; ++x) {
             sm90::tma_load_4d(k_s + x * T::kN * 64, &map_k, &full[stage],
                               x * 64, hk, k0, b);
             sm90::tma_load_4d(v_s + x * T::kN * 64, &map_v, &full[stage],
@@ -548,10 +590,10 @@ __global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
       if (lane == 0) sm90::mbar_arrive(&empty[stage]);
       next_stage(stage, phase, T::kStages);
     }
-    const size_t qs = (size_t)p.heads * D;
+    const size_t qs = (size_t)p.heads * p.dim;
     store_rows<bf16, D / 8>(
-        static_cast<bf16*>(p.dq) + (size_t)b * S * qs + h * D, qs, row0, S,
-        acc, t);
+        static_cast<bf16*>(p.dq) + (size_t)b * S * qs + (size_t)h * p.dim, qs,
+        row0, S, p.dim, acc, t);
   }
 }
 
@@ -594,6 +636,10 @@ __global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
   const int nq = (q_hi - q_lo) / T::kTQ;
   const int total = group * nq;
   const int wg = threadIdx.x / kWg;
+  const int live = live_boxes<D>(p);
+  zero_dead_boxes(smem, 2, T::kKV, T::kN * kBoxRow, live, T::kBoxes);
+  zero_dead_boxes(ring, 2 * T::kStages, T::kQ, T::kTQ * kBoxRow, live,
+                  T::kBoxes);
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kv_full, 32);  // the producer warp
@@ -611,8 +657,8 @@ __global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
     if (lane < 32) {
       load_key_flags(flags, p, b, k0, T::kN, lane, 32);
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(kv_full, 2 * T::kKV);
-        for (int x = 0; x < T::kBoxes; ++x) {
+        sm90::mbar_arrive_expect_tx(kv_full, 2 * live * T::kN * kBoxRow);
+        for (int x = 0; x < live; ++x) {
           sm90::tma_load_4d(k_s + x * T::kN * 64, &map_k, kv_full, x * 64,
                             hk, k0, b);
           sm90::tma_load_4d(v_s + x * T::kN * 64, &map_v, kv_full, x * 64,
@@ -635,10 +681,11 @@ __global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
           rows[T::kTQ + i] = ok ? p.delta[r0 + i] : 0.f;
         }
         if (lane == 0) {
-          sm90::mbar_arrive_expect_tx(&full[stage], 2 * T::kQ);
+          sm90::mbar_arrive_expect_tx(&full[stage],
+                                      2 * live * T::kTQ * kBoxRow);
           bf16* q_s = reinterpret_cast<bf16*>(ring + stage * 2 * T::kQ);
           bf16* do_s = q_s + T::kQ / sizeof(bf16);
-          for (int x = 0; x < T::kBoxes; ++x) {
+          for (int x = 0; x < live; ++x) {
             sm90::tma_load_4d(q_s + x * T::kTQ * 64, &map_q, &full[stage],
                               x * 64, h, q0, b);
             sm90::tma_load_4d(do_s + x * T::kTQ * 64, &map_do, &full[stage],
@@ -711,11 +758,11 @@ __global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
       if (lane == 0) sm90::mbar_arrive(&empty[stage]);
       next_stage(stage, phase, T::kStages);
     }
-    const size_t ks = (size_t)p.kv_heads * D;
+    const size_t ks = (size_t)p.kv_heads * p.dim;
     store_rows<bf16, D / 8>(
         static_cast<bf16*>(dk_side ? p.dk : p.dv) + (size_t)b * S * ks +
-            hk * D,
-        ks, key0, S, acc, t);
+            (size_t)hk * p.dim,
+        ks, key0, S, p.dim, acc, t);
   } else {
     sm90::setmaxnreg_inc<T::kConsumerRegs>();
     const int c = wg - 1;
@@ -779,12 +826,12 @@ __global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
       if (lane == 0) sm90::mbar_arrive(&empty[stage]);
       next_stage(stage, phase, T::kStages);
     }
-    const size_t ks = (size_t)p.kv_heads * D;
-    const size_t kvoff = (size_t)b * S * ks + hk * D;
+    const size_t ks = (size_t)p.kv_heads * p.dim;
+    const size_t kvoff = (size_t)b * S * ks + (size_t)hk * p.dim;
     store_rows<bf16, D / 8>(static_cast<bf16*>(p.dk) + kvoff, ks, key0, S,
-                            dk, t);
+                            p.dim, dk, t);
     store_rows<bf16, D / 8>(static_cast<bf16*>(p.dv) + kvoff, ks, key0, S,
-                            dv, t);
+                            p.dim, dv, t);
   }
 }
 
@@ -794,12 +841,12 @@ template <int D>
 cudaError_t launch_fwd_bf16(const Params& p, cudaStream_t stream) {
   using T = FwdTiles<D>;
   CUtensorMap map_q, map_k, map_v;
-  if (!sm90::make_map_bf16_bshd(&map_q, p.q, p.batch, p.seq, p.heads, D,
+  if (!sm90::make_map_bf16_bshd(&map_q, p.q, p.batch, p.seq, p.heads, p.dim,
                                 T::kM) ||
-      !sm90::make_map_bf16_bshd(&map_k, p.k, p.batch, p.seq, p.kv_heads, D,
-                                T::kN) ||
-      !sm90::make_map_bf16_bshd(&map_v, p.v, p.batch, p.seq, p.kv_heads, D,
-                                T::kN))
+      !sm90::make_map_bf16_bshd(&map_k, p.k, p.batch, p.seq, p.kv_heads,
+                                p.dim, T::kN) ||
+      !sm90::make_map_bf16_bshd(&map_v, p.v, p.batch, p.seq, p.kv_heads,
+                                p.dim, T::kN))
     return cudaErrorInvalidValue;
   const long long blocks =
       (long long)((p.seq + T::kM - 1) / T::kM) * p.heads * p.batch;
@@ -821,14 +868,14 @@ cudaError_t launch_bwd_bf16(int which, const Params& p,
   const uint32_t q_rows = dq ? DqTiles<D>::kM : DkdvTiles<D>::kTQ;
   const uint32_t k_rows = dq ? DqTiles<D>::kN : DkdvTiles<D>::kN;
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!sm90::make_map_bf16_bshd(&map_q, p.q, p.batch, p.seq, p.heads, D,
+  if (!sm90::make_map_bf16_bshd(&map_q, p.q, p.batch, p.seq, p.heads, p.dim,
                                 q_rows) ||
-      !sm90::make_map_bf16_bshd(&map_do, p.dout, p.batch, p.seq, p.heads, D,
-                                q_rows) ||
-      !sm90::make_map_bf16_bshd(&map_k, p.k, p.batch, p.seq, p.kv_heads, D,
-                                k_rows) ||
-      !sm90::make_map_bf16_bshd(&map_v, p.v, p.batch, p.seq, p.kv_heads, D,
-                                k_rows))
+      !sm90::make_map_bf16_bshd(&map_do, p.dout, p.batch, p.seq, p.heads,
+                                p.dim, q_rows) ||
+      !sm90::make_map_bf16_bshd(&map_k, p.k, p.batch, p.seq, p.kv_heads,
+                                p.dim, k_rows) ||
+      !sm90::make_map_bf16_bshd(&map_v, p.v, p.batch, p.seq, p.kv_heads,
+                                p.dim, k_rows))
     return cudaErrorInvalidValue;
   void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
                  Params) = dq ? flash_dq_bf16<D> : flash_dkdv_bf16<D>;
@@ -847,22 +894,19 @@ cudaError_t launch_bwd_bf16(int which, const Params& p,
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int which, int kind, int head_dim, const Params& p,
-                     void* stream) {
+cudaError_t dispatch(int which, int kind, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind != 1 || p.batch <= 0 || p.seq <= 0 || p.kv_heads <= 0 ||
-      p.heads % p.kv_heads != 0)
+  const int width = template_width(p.dim);
+  if (kind != 1 || width == 0 || p.batch <= 0 || p.seq <= 0 ||
+      p.kv_heads <= 0 || p.heads % p.kv_heads != 0)
     return cudaErrorInvalidValue;
-  if (head_dim == 64 || head_dim == 128 || head_dim == 256) {
-    const bool fwd = which == kForward;
-    if (head_dim == 64)
-      return fwd ? launch_fwd_bf16<64>(p, s) : launch_bwd_bf16<64>(which, p, s);
-    if (head_dim == 128)
-      return fwd ? launch_fwd_bf16<128>(p, s)
-                 : launch_bwd_bf16<128>(which, p, s);
-    return fwd ? launch_fwd_bf16<256>(p, s) : launch_bwd_bf16<256>(which, p, s);
-  }
-  return cudaErrorInvalidValue;
+  const bool fwd = which == kForward;
+  if (width == 64)
+    return fwd ? launch_fwd_bf16<64>(p, s) : launch_bwd_bf16<64>(which, p, s);
+  if (width == 128)
+    return fwd ? launch_fwd_bf16<128>(p, s)
+               : launch_bwd_bf16<128>(which, p, s);
+  return fwd ? launch_fwd_bf16<256>(p, s) : launch_bwd_bf16<256>(which, p, s);
 }
 
 }  // namespace

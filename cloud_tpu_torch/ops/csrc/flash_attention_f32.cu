@@ -8,7 +8,10 @@
 // product computed in f32 FMAs from shared memory in the mma fragment
 // layout, its k loop rolled (these kernels check, they are not timed, and
 // the unrolled code took most of the build), P and dS passed through
-// shared memory; the per-element steps are the bf16 kernels' own.
+// shared memory; the per-element steps are the bf16 kernels' own. A
+// head_dim below the template width is read with zero columns past it
+// (load_tile) and written only up to it (store_rows), as in the bf16
+// kernels.
 
 #include "flash_common.cuh"
 
@@ -43,18 +46,20 @@ __device__ __forceinline__ void mma_16x8x16(float* c, const float* a,
 
 // Copies `rows` rows of D elements (global row stride `stride` elements)
 // into shared memory (row stride ld), 16 bytes per thread and step; rows at
-// or past `valid` are zero-filled.
+// or past `valid`, and columns at or past `cols` (head_dim, a multiple of
+// 8, below the template width D), are zero-filled.
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
-                                          size_t stride, int rows,
-                                          int valid) {
+                                          size_t stride, int rows, int valid,
+                                          int cols) {
   constexpr int kVec = 4;
   constexpr int kPerRow = D / kVec;
   for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
     int4 x = make_int4(0, 0, 0, 0);
-    if (r < valid) x = *reinterpret_cast<const int4*>(src + r * stride + c);
+    if (r < valid && c < cols)
+      x = *reinterpret_cast<const int4*>(src + r * stride + c);
     *reinterpret_cast<int4*>(dst + r * ld + c) = x;
   }
 }
@@ -105,13 +110,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   const int hk = h / (p.heads / p.kv_heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = (lane & 3) * 2;
-  const size_t qs = (size_t)p.heads * D, ks = (size_t)p.kv_heads * D;
-  const float* kg = static_cast<const float*>(p.k) + (size_t)b * S * ks + hk * D;
-  const float* vg = static_cast<const float*>(p.v) + (size_t)b * S * ks + hk * D;
+  const int dim = p.dim;
+  const size_t qs = (size_t)p.heads * dim, ks = (size_t)p.kv_heads * dim;
+  const float* kg =
+      static_cast<const float*>(p.k) + (size_t)b * S * ks + (size_t)hk * dim;
+  const float* vg =
+      static_cast<const float*>(p.v) + (size_t)b * S * ks + (size_t)hk * dim;
   load_tile<D>(q_s, LD,
                static_cast<const float*>(p.q) + ((size_t)b * S + q0) * qs +
-                   h * D,
-               qs, kBlockM, S - q0);
+                   (size_t)h * dim,
+               qs, kBlockM, S - q0, dim);
 
   float acc[DT][4];
 #pragma unroll
@@ -124,8 +132,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
   for (int k0 = 0; k0 < S; k0 += kBlockN) {
     if (!tile_live(p, q0, kBlockM, k0, kBlockN)) continue;
     __syncthreads();  // every read of the previous tile is done
-    load_tile<D>(k_s, LD, kg + k0 * ks, ks, kBlockN, S - k0);
-    load_tile<D>(v_s, LD, vg + k0 * ks, ks, kBlockN, S - k0);
+    load_tile<D>(k_s, LD, kg + k0 * ks, ks, kBlockN, S - k0, dim);
+    load_tile<D>(v_s, LD, vg + k0 * ks, ks, kBlockN, S - k0, dim);
     load_key_flags(flags, p, b, k0, kBlockN);
     __syncthreads();
 
@@ -153,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
                            v_s + kk * LD + col0 + d * 8, LD);
     }
   }
-  fwd_store<float, DT, D>(p, b, h, row0, acc, m, l, lane, col0);
+  fwd_store<float, DT>(p, b, h, row0, acc, m, l, lane, col0);
 }
 
 // Keys per tile of the f32 dq: 64, and 32 at D 256 (shared memory).
@@ -192,14 +200,17 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   const int hk = h / (p.heads / p.kv_heads);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = (lane & 3) * 2;
-  const size_t qs = (size_t)p.heads * D, ks = (size_t)p.kv_heads * D;
-  const size_t qoff = ((size_t)b * S + q0) * qs + h * D;
-  const float* kg = static_cast<const float*>(p.k) + (size_t)b * S * ks + hk * D;
-  const float* vg = static_cast<const float*>(p.v) + (size_t)b * S * ks + hk * D;
+  const int dim = p.dim;
+  const size_t qs = (size_t)p.heads * dim, ks = (size_t)p.kv_heads * dim;
+  const size_t qoff = ((size_t)b * S + q0) * qs + (size_t)h * dim;
+  const float* kg =
+      static_cast<const float*>(p.k) + (size_t)b * S * ks + (size_t)hk * dim;
+  const float* vg =
+      static_cast<const float*>(p.v) + (size_t)b * S * ks + (size_t)hk * dim;
   load_tile<D>(q_s, LD, static_cast<const float*>(p.q) + qoff, qs, kBlockM,
-               S - q0);
+               S - q0, dim);
   load_tile<D>(do_s, LD, static_cast<const float*>(p.dout) + qoff, qs,
-               kBlockM, S - q0);
+               kBlockM, S - q0, dim);
 
   const int row0 = q0 + warp * 16 + g;
   float lse[2], delta[2];  // lse in log2 units
@@ -220,8 +231,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
   for (int k0 = 0; k0 < S; k0 += BN) {
     if (!tile_live(p, q0, kBlockM, k0, BN)) continue;
     __syncthreads();
-    load_tile<D>(k_s, LD, kg + k0 * ks, ks, BN, S - k0);
-    load_tile<D>(v_s, LD, vg + k0 * ks, ks, BN, S - k0);
+    load_tile<D>(k_s, LD, kg + k0 * ks, ks, BN, S - k0, dim);
+    load_tile<D>(v_s, LD, vg + k0 * ks, ks, BN, S - k0, dim);
     load_key_flags(flags, p, b, k0, BN);
     __syncthreads();
     const bool full = tile_full(p, q0, kBlockM, k0, BN);
@@ -256,8 +267,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Params p) {
     }
   }
   store_rows<float, DT>(
-      static_cast<float*>(p.dq) + (size_t)b * S * qs + h * D + col0, qs, row0,
-      S, acc, t);
+      static_cast<float*>(p.dq) + (size_t)b * S * qs + (size_t)h * dim + col0,
+      qs, row0, S, dim - col0, acc, t);
 }
 
 // q rows per inner tile of the f32 dk/dv: 64 at D 64, 32 at D 128 and 256
@@ -301,12 +312,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(Params p) {
   const int group = p.heads / p.kv_heads;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = (lane & 3) * 2;
-  const size_t qs = (size_t)p.heads * D, ks = (size_t)p.kv_heads * D;
-  const size_t koff = ((size_t)b * S + k0) * ks + hk * D;
+  const int dim = p.dim;
+  const size_t qs = (size_t)p.heads * dim, ks = (size_t)p.kv_heads * dim;
+  const size_t koff = ((size_t)b * S + k0) * ks + (size_t)hk * dim;
   load_tile<D>(k_s, LD, static_cast<const float*>(p.k) + koff, ks, kBlockN,
-               S - k0);
+               S - k0, dim);
   load_tile<D>(v_s, LD, static_cast<const float*>(p.v) + koff, ks, kBlockN,
-               S - k0);
+               S - k0, dim);
   load_key_flags(flags, p, b, k0, kBlockN);
 
   float dk[DT][4], dv[DT][4];
@@ -323,15 +335,17 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(Params p) {
 
   for (int gi = 0; gi < group; ++gi) {
     const int h = hk * group + gi;
-    const float* qg = static_cast<const float*>(p.q) + (size_t)b * S * qs + h * D;
-    const float* dog = static_cast<const float*>(p.dout) + (size_t)b * S * qs + h * D;
+    const float* qg =
+        static_cast<const float*>(p.q) + (size_t)b * S * qs + (size_t)h * dim;
+    const float* dog = static_cast<const float*>(p.dout) + (size_t)b * S * qs +
+                       (size_t)h * dim;
     const float* lseg = p.lse_in + ((size_t)b * p.heads + h) * S;
     const float* deltag = p.delta + ((size_t)b * p.heads + h) * S;
     for (int q0 = 0; q0 < S; q0 += TQ) {
       if (!tile_live(p, q0, TQ, k0, kBlockN)) continue;
       __syncthreads();  // every read of the previous q tile is done
-      load_tile<D>(q_s, LD, qg + q0 * qs, qs, TQ, S - q0);
-      load_tile<D>(do_s, LD, dog + q0 * qs, qs, TQ, S - q0);
+      load_tile<D>(q_s, LD, qg + q0 * qs, qs, TQ, S - q0, dim);
+      load_tile<D>(do_s, LD, dog + q0 * qs, qs, TQ, S - q0, dim);
       for (int i = threadIdx.x; i < TQ; i += kThreads) {
         lse_s[i] = q0 + i < S ? lseg[q0 + i] * kLog2e : 0.f;
         delta_s[i] = q0 + i < S ? deltag[q0 + i] : 0.f;
@@ -380,9 +394,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(Params p) {
       }
     }
   }
-  const size_t kvoff = (size_t)b * S * ks + hk * D + col0;
-  store_rows<float, DT>(static_cast<float*>(p.dk) + kvoff, ks, key0, S, dk, t);
-  store_rows<float, DT>(static_cast<float*>(p.dv) + kvoff, ks, key0, S, dv, t);
+  const size_t kvoff = (size_t)b * S * ks + (size_t)hk * dim + col0;
+  store_rows<float, DT>(static_cast<float*>(p.dk) + kvoff, ks, key0, S,
+                        dim - col0, dk, t);
+  store_rows<float, DT>(static_cast<float*>(p.dv) + kvoff, ks, key0, S,
+                        dim - col0, dv, t);
 }
 
 template <int D>
@@ -413,16 +429,15 @@ cudaError_t launch(int which, const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(int which, int kind, int head_dim, const Params& p,
-                     void* stream) {
+cudaError_t dispatch(int which, int kind, const Params& p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind != 0 || p.batch <= 0 || p.seq <= 0 || p.kv_heads <= 0 ||
-      p.heads % p.kv_heads != 0)
+  const int width = template_width(p.dim);
+  if (kind != 0 || width == 0 || p.batch <= 0 || p.seq <= 0 ||
+      p.kv_heads <= 0 || p.heads % p.kv_heads != 0)
     return cudaErrorInvalidValue;
-  if (head_dim == 64) return launch<64>(which, p, s);
-  if (head_dim == 128) return launch<128>(which, p, s);
-  if (head_dim == 256) return launch<256>(which, p, s);
-  return cudaErrorInvalidValue;
+  if (width == 64) return launch<64>(which, p, s);
+  if (width == 128) return launch<128>(which, p, s);
+  return launch<256>(which, p, s);
 }
 
 }  // namespace

@@ -33,9 +33,16 @@ struct Params {
   void* dk;
   void* dv;
   int batch, seq, heads, kv_heads;
-  int causal, window;
+  int window;
+  int16_t causal;
+  int16_t dim;  // head_dim D (<= 256): the row length of each [., ., H, D]
   float sm_scale, softcap;
 };
+// Every kernel takes Params by value. At 136 bytes (one more int) all
+// three bf16 kernels ran 5-17 % slower on the card than at 128 (chip_smoke
+// --flash-times, in turns on one card), so `causal` and `dim` share a
+// word.
+static_assert(sizeof(Params) == 128, "Params must stay 128 bytes");
 
 // The causal/window part of the mask for one (row, col) pair.
 __device__ __forceinline__ bool band_ok(const Params& p, int row, int col) {
@@ -322,7 +329,10 @@ __device__ __forceinline__ void dkdv_pds_tile(const Params& p, bool full,
 // This lane's share of a 16-row output tile in the m16n8 accumulator
 // layout: rows row0 and row0 + 8 of `base` (row stride `stride`; rows
 // below 0 or at or past `rows` are not written), columns d * 8 + t and
-// + 1, row row0 multiplied by mul0 and row row0 + 8 by mul1.
+// + 1 below `cols` (the accumulators past head_dim hold the zeros of the
+// operands' zero-filled columns and are not written; cols is a multiple
+// of 8, so a pair is wholly in or out), row row0 multiplied by mul0 and
+// row row0 + 8 by mul1.
 __device__ __forceinline__ void store2(float* dst, float lo, float hi) {
   *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
 }
@@ -331,8 +341,9 @@ __device__ __forceinline__ void store2(bf16* dst, float lo, float hi) {
 }
 template <typename T, int DT>
 __device__ __forceinline__ void store_rows(T* base, size_t stride, int row0,
-                                           int rows, const float (&acc)[DT][4],
-                                           int t, float mul0 = 1.f,
+                                           int rows, int cols,
+                                           const float (&acc)[DT][4], int t,
+                                           float mul0 = 1.f,
                                            float mul1 = 1.f) {
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -342,24 +353,25 @@ __device__ __forceinline__ void store_rows(T* base, size_t stride, int row0,
     const float mul = j ? mul1 : mul0;
 #pragma unroll
     for (int d = 0; d < DT; ++d)
-      store2(r + d * 8 + t, acc[d][j * 2] * mul, acc[d][j * 2 + 1] * mul);
+      if (d * 8 + t < cols)
+        store2(r + d * 8 + t, acc[d][j * 2] * mul, acc[d][j * 2 + 1] * mul);
   }
 }
 
 // The forward's epilogue: out = acc / l (0 where l == 0) into columns
-// col0 .. col0 + 8 DT of head_dim D, and, from the quad's first lane, lse =
-// m + log(l) (kNegInf where l == 0), m and l in log2 units.
-template <typename T, int DT, int D = DT * 8>
+// col0 .. col0 + 8 DT of the row (those below head_dim), and, from the
+// quad's first lane, lse = m + log(l) (kNegInf where l == 0), m and l in
+// log2 units.
+template <typename T, int DT>
 __device__ __forceinline__ void fwd_store(const Params& p, int b, int h,
                                           int row0, const float (&acc)[DT][4],
                                           const float* m, const float* l,
                                           int lane, int col0 = 0) {
   const int S = p.seq;
-  const size_t qs = (size_t)p.heads * D;
-  store_rows<T, DT>(static_cast<T*>(p.out) + (size_t)b * S * qs + h * D +
-                        col0,
-                    qs,
-                    row0, S, acc, (lane & 3) * 2,
+  const size_t qs = (size_t)p.heads * p.dim;
+  store_rows<T, DT>(static_cast<T*>(p.out) + (size_t)b * S * qs +
+                        (size_t)h * p.dim + col0,
+                    qs, row0, S, p.dim - col0, acc, (lane & 3) * 2,
                     l[0] == 0.f ? 0.f : 1.f / l[0],
                     l[1] == 0.f ? 0.f : 1.f / l[1]);
 #pragma unroll
@@ -369,6 +381,17 @@ __device__ __forceinline__ void fwd_store(const Params& p, int b, int h,
       p.lse_out[((size_t)b * p.heads + h) * S + row] =
           l[j] == 0.f ? kNegInf : (m[j] + log2f(l[j])) * kLn2;
   }
+}
+
+// The template width a head_dim runs at: the next of 64, 128 and 256. A
+// head_dim below it is read as zero-filled columns past D (TMA fills them
+// in the bf16 kernels, load_tile in the f32 ones), which leave S = Q K^T
+// and dP = dO V^T exact and give the outputs zero columns there, which
+// are not written. D must be a multiple of 8 (the 16-byte rows TMA and
+// the vector loads take); 0 for any other D.
+inline int template_width(int head_dim) {
+  if (head_dim <= 0 || head_dim % 8 != 0 || head_dim > 256) return 0;
+  return head_dim <= 64 ? 64 : head_dim <= 128 ? 128 : 256;
 }
 
 enum Which { kForward = 0, kDq = 1, kDkdv = 2 };
@@ -394,8 +417,8 @@ cudaError_t allow_smem(K kernel, size_t bytes, uint64_t& done) {
 
 Params make_params(const void* q, const void* k, const void* v,
                    const void* mask, int batch, int seq, int heads,
-                   int kv_heads, int causal, int window, float sm_scale,
-                   float softcap) {
+                   int kv_heads, int head_dim, int causal, int window,
+                   float sm_scale, float softcap) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -405,33 +428,37 @@ Params make_params(const void* q, const void* k, const void* v,
   p.seq = seq;
   p.heads = heads;
   p.kv_heads = kv_heads;
-  p.causal = causal;
+  // Out of range (template_width refuses -1) before it is narrowed.
+  p.dim = static_cast<int16_t>(head_dim > 0 && head_dim <= 256 ? head_dim
+                                                                : -1);
+  p.causal = static_cast<int16_t>(causal != 0);
   p.window = window;
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   return p;
 }
 
-// The kernels of the including source: kind 0 (f32) or 1 (bf16).
-cudaError_t dispatch(int which, int kind, int head_dim, const Params& p,
-                     void* stream);
+// The kernels of the including source: kind 0 (f32) or 1 (bf16), at the
+// template width of p.dim.
+cudaError_t dispatch(int which, int kind, const Params& p, void* stream);
 
 }  // namespace
 
 
-// kind: 0 = f32, 1 = bf16; head_dim 64, 128 or 256. mask may be null. Each
-// function returns the launch's cudaError_t (0 = ok); an unknown kind or
-// head_dim, or heads not a multiple of kv_heads, gives cudaErrorInvalidValue.
+// kind: 0 = f32, 1 = bf16; head_dim a multiple of 8 up to 256 (run at the
+// template width of template_width). mask may be null. Each function
+// returns the launch's cudaError_t (0 = ok); an unknown kind or head_dim,
+// or heads not a multiple of kv_heads, gives cudaErrorInvalidValue.
 extern "C" int flash_attention_forward(
     int kind, const void* q, const void* k, const void* v, const void* mask,
     void* out, void* lse, int batch, int seq, int heads, int kv_heads,
     int head_dim, int causal, int window, float sm_scale, float softcap,
     void* stream) {
-  Params p = make_params(q, k, v, mask, batch, seq, heads, kv_heads, causal,
-                         window, sm_scale, softcap);
+  Params p = make_params(q, k, v, mask, batch, seq, heads, kv_heads,
+                         head_dim, causal, window, sm_scale, softcap);
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
-  return dispatch(kForward, kind, head_dim, p, stream);
+  return dispatch(kForward, kind, p, stream);
 }
 
 extern "C" int flash_attention_backward_dq(
@@ -439,13 +466,13 @@ extern "C" int flash_attention_backward_dq(
     const void* dout, const void* lse, const void* delta, void* dq,
     int batch, int seq, int heads, int kv_heads, int head_dim, int causal,
     int window, float sm_scale, float softcap, void* stream) {
-  Params p = make_params(q, k, v, mask, batch, seq, heads, kv_heads, causal,
-                         window, sm_scale, softcap);
+  Params p = make_params(q, k, v, mask, batch, seq, heads, kv_heads,
+                         head_dim, causal, window, sm_scale, softcap);
   p.dout = dout;
   p.lse_in = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
-  return dispatch(kDq, kind, head_dim, p, stream);
+  return dispatch(kDq, kind, p, stream);
 }
 
 extern "C" int flash_attention_backward_dkdv(
@@ -453,12 +480,12 @@ extern "C" int flash_attention_backward_dkdv(
     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
     int batch, int seq, int heads, int kv_heads, int head_dim, int causal,
     int window, float sm_scale, float softcap, void* stream) {
-  Params p = make_params(q, k, v, mask, batch, seq, heads, kv_heads, causal,
-                         window, sm_scale, softcap);
+  Params p = make_params(q, k, v, mask, batch, seq, heads, kv_heads,
+                         head_dim, causal, window, sm_scale, softcap);
   p.dout = dout;
   p.lse_in = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dk = dk;
   p.dv = dv;
-  return dispatch(kDkdv, kind, head_dim, p, stream);
+  return dispatch(kDkdv, kind, p, stream);
 }

@@ -76,12 +76,13 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, uint64_t rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The map of a bf16 tensor [B, S, H, D] (D contiguous; D a multiple of
-// 64) as rank 4 {D, H, S, B}, cut into boxes of 64 values x 1 head x
-// box_rows positions x 1 example: a box lands as box_rows rows of 128
-// bytes, 128-byte swizzled, and rows past S are filled with zeros within
-// the box's own example (a rank-2 map over [B * S, H * D] would read the
-// next example's rows there).
+// The map of a bf16 tensor [B, S, H, D] (D contiguous; D a multiple of 8,
+// so that rows are 16 bytes apart) as rank 4 {D, H, S, B}, cut into boxes
+// of 64 values x 1 head x box_rows positions x 1 example: a box lands as
+// box_rows rows of 128 bytes, 128-byte swizzled; columns past D are filled
+// with zeros (a box may be wider than D), and rows past S too, within the
+// box's own example (a rank-2 map over [B * S, H * D] would read the next
+// example's rows there).
 inline bool make_map_bf16_bshd(CUtensorMap* map, const void* base,
                                uint64_t batch, uint64_t seq, uint64_t heads,
                                uint64_t dim, uint32_t box_rows) {

@@ -280,6 +280,21 @@ def paged_attention(q, key_pages, value_pages, page_table, allowed,
                           value_scales if quantized else None)
 
 
+def paged_decode_attention(q, key_pages, value_pages, page_table, allowed,
+                           sm_scale=None, interpret=None, key_scales=None,
+                           value_scales=None):
+    """`paged_attention` under the JAX package's name and argument list
+    (`cloud_tpu/ops/paged_attention.py` `paged_decode_attention`). The
+    port has no interpret mode: CPU tensors take the plain version, CUDA
+    tensors the kernel, so `interpret` may only be None or False."""
+    if interpret:
+        raise ValueError("the port has no interpret mode; CPU tensors run "
+                         "the plain version (paged_attention_reference).")
+    return paged_attention(q, key_pages, value_pages, page_table, allowed,
+                           sm_scale=sm_scale, key_scales=key_scales,
+                           value_scales=value_scales)
+
+
 def paged_attention_cost(slots, seq, heads, head_dim, page_size,
                          pages_per_slot, dtype=torch.bfloat16,
                          kv_dtype=None):
@@ -308,4 +323,5 @@ def paged_attention_cost(slots, seq, heads, head_dim, page_size,
 
 
 __all__ = ["launches", "paged_attention", "paged_attention_cost",
-           "paged_attention_reference", "plan", "reset_launches"]
+           "paged_attention_reference", "paged_decode_attention", "plan",
+           "reset_launches"]

@@ -7,7 +7,8 @@ interpret mode and `jax.vjp`, for every variant of the contract.
 Tolerance: 1e-5 (f32 on both sides; the Pallas kernels sum blockwise
 with an online softmax, the plain version in one pass), at head_dim 16
 and, for the Gemma 2 shape of the contract (GQA, softcap, key mask),
-head_dim 256. bf16 inputs: see `test_bf16_reference_matches_jax_kernel`.
+head_dim 256; and at head_dims 96 and 36, which are no kernel template
+width. bf16 inputs: see `test_bf16_reference_matches_jax_kernel`.
 """
 
 import sys
@@ -44,6 +45,11 @@ VARIANTS = {
     "d256_softcap_gqa_mask": dict(causal=True, logit_softcap=2.0,
                                   kv_heads=2, mask=True, head_dim=256,
                                   sm_scale=1 / 16),
+    # head_dims that are not a kernel template width: Phi-3-mini's 96, and
+    # 36, which the CUDA wrapper sends through a zero-padded copy; the
+    # default sm_scale is 1/sqrt(D) of the true D on both sides.
+    "d96_window_gqa": dict(causal=True, window=12, kv_heads=2, head_dim=96),
+    "d36_mask": dict(causal=True, mask=True, head_dim=36),
 }
 
 

@@ -289,6 +289,46 @@ def test_flash_kernels_match_plain_version(dtype, head_dim, variant, shape):
     assert torch.isfinite(out).all() and torch.isfinite(dq).all()
 
 
+# head_dims other than the template widths: multiples of 8 below each
+# width (8 and 32 at 64; 72, 80 (phi-2) and 96 (Phi-3-mini) at 128; 136,
+# whose fourth box of 64 columns lies wholly past D, and 200 at 256), and
+# 36 and 100, which go through the copy zero-padded to a multiple of 8.
+ANY_HEAD_DIMS = (8, 32, 36, 72, 80, 96, 100, 136, 200)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["causal", "mask", "softcap"])
+@pytest.mark.parametrize("head_dim", ANY_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_at_any_head_dim(dtype, head_dim, variant):
+    """The three kernels at a head_dim that is not a template width, on
+    the true-D tensors, against the plain versions at that D (default
+    sm_scale 1/sqrt(D)), under the limits above; the outputs have D
+    columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import attention as tatt
+
+    q, k, v, dout, kw = _flash_case(dtype, head_dim, variant, batch=2,
+                                    seq=80, heads=4, kv_heads=2)
+    before = dict(tatt.launches)
+    out = tatt.flash_attention(q, k, v, **kw)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkdv"):
+        assert tatt.launches[name] == before[name] + 1
+    assert out.shape == q.shape and dq.shape == q.shape
+    assert dk.shape == k.shape and dv.shape == v.shape
+    f32 = [x.detach().float() for x in (q, k, v, dout)]
+    delta = (f32[3] * out.detach().float()).sum(-1).transpose(1, 2)
+    _close(out, tatt.mha_reference(*f32[:3], **kw), dtype)
+    grads = tatt.mha_backward_reference(*f32, delta, **kw)
+    for got, want in zip((dq, dk, dv), grads):
+        _close(got, want, dtype)
+
+
 @pytest.mark.cuda
 def test_flash_wrapper_rejects_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
@@ -296,7 +336,9 @@ def test_flash_wrapper_rejects_what_the_kernels_do_not_take():
     from cloud_tpu_torch.ops import attention as tatt
 
     dev = torch.device("cuda")
-    for head_dim in (32, 96, 192):
+    # Any head_dim up to 256 runs (test_flash_kernels_at_any_head_dim);
+    # past the widest template it raises.
+    for head_dim in (257, 320):
         q = torch.zeros((1, 8, 2, head_dim), dtype=torch.bfloat16,
                         device=dev)
         with pytest.raises(ValueError, match="head_dim"):
@@ -546,4 +588,100 @@ def test_fused_mlp_takes_any_layout(dtype):
     torch.cuda.synchronize()
     assert tfm.launches["fused_mlp_gate_up"] == \
         before["fused_mlp_gate_up"] + 1
+    assert torch.equal(got, want)
+
+
+# -- decode shapes --------------------------------------------------------
+#
+# The fused norm and the fused SwiGLU at the row counts of a decode step
+# (rows = batch) at TinyLlama-1.1B's widths (D 2048, d_ff 5632), under the
+# limits of their tests above.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_norm_and_mlp_kernels_at_decode_rows(dtype, rows):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    rng = np.random.default_rng(rows)
+    dev = torch.device("cuda")
+    d, f = 2048, 5632
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=dt,
+                            device=dev)
+
+    x, r = t(rows, d), t(rows, d)
+    scale = t(d, scale=0.1, dt=torch.float32) + 1
+    before = dict(tfn.launches)
+    normed, h = tfn.fused_rmsnorm(x, scale, residual=r, eps=1e-5)
+    alone, _ = tfn.fused_rmsnorm(x, scale, eps=1e-5)
+    wg, wu = t(f, d, scale=d ** -0.5), t(f, d, scale=d ** -0.5)
+    wd = t(d, f, scale=f ** -0.5)
+    before_mlp = dict(tfm.launches)
+    y = tfm.fused_swiglu(normed, wg, wu, wd)
+    torch.cuda.synchronize()
+    assert tfn.launches["fused_norm"] == before["fused_norm"] + 1
+    assert tfn.launches["fused_norm_noresidual"] == \
+        before["fused_norm_noresidual"] + 1
+    assert tfm.launches["fused_mlp_gate_up"] == \
+        before_mlp["fused_mlp_gate_up"] + 1
+    assert tfm.launches["fused_mlp_down"] == before_mlp["fused_mlp_down"] + 1
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for got, residual in ((normed, r), (alone, None)):
+        want, want_h = tfn.rmsnorm_residual_reference(
+            x, scale, residual=residual, eps=1e-5)
+        np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                                   rtol=rtol, atol=1e-6)
+    assert torch.equal(h, x + r)
+    _, want_y = tfm.swiglu_rounded_reference(normed, wg, wu, wd, "silu")
+    _close_rows(y, want_y, *((1e-5, 1e-5) if dtype == torch.float32
+                             else (2.0 ** -8, 1e-2)))
+
+
+@pytest.mark.cuda
+def test_llama_decode_on_the_card():
+    """A 2-layer `LlamaLM` at head_dim 96 (f32): its decode logits on the
+    card (the fused norm and MLP kernels; the plain grouped attention)
+    match its training forward there (the flash kernels at D 96) within
+    1e-4 (f32 sums in another order), and its greedy `generate()` equals
+    the same model's on the CPU (the plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.models import LlamaLM, generate
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.ops import fused_mlp as tfm
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    cfg = dict(vocab_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+               d_model=128, d_ff=344, head_dim=96, max_seq_len=128,
+               rope_style="rotate_half", compute_dtype=torch.float32)
+    card = LlamaLM(device="cuda", seed=1, **cfg)
+    cpu = LlamaLM(device="cpu", seed=1, **cfg)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, size=(3, 40)))
+    before = dict(tatt.launches)
+    with torch.no_grad():
+        full = card(tokens.cuda())
+    assert tatt.launches["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 2
+    cache = card.init_cache(3)
+    norm0, mlp0 = dict(tfn.launches), dict(tfm.launches)
+    parts = [card(tokens[:, :30].cuda(), None, cache)]
+    parts += [card(tokens[:, i:i + 1].cuda(), None, cache)
+              for i in range(30, 40)]
+    torch.cuda.synchronize()
+    assert tfm.launches["fused_mlp_down"] == mlp0["fused_mlp_down"] + 2 * 11
+    assert tfn.launches["fused_norm"] == norm0["fused_norm"] + 2 * 11
+    np.testing.assert_allclose(torch.cat(parts, 1).cpu(), full.cpu(),
+                               rtol=1e-4, atol=1e-4)
+    before = dict(tatt.launches)
+    got = generate(card, tokens[:, :20], 12, temperature=0.0)
+    assert tatt.launches == before  # generation reaches no flash kernel
+    want = generate(cpu, tokens[:, :20], 12, temperature=0.0)
     assert torch.equal(got, want)

@@ -51,3 +51,24 @@ def test_gradient_reaches_the_view():
     assert out.requires_grad and out.is_contiguous()
     (out * torch.arange(15.0).view(5, 3)).sum().backward()
     assert torch.equal(base.grad, torch.arange(15.0).view(5, 3).T)
+
+
+@pytest.mark.parametrize("head_dim", [1, 36, 100])
+def test_pad_last_zero_pads_to_a_multiple_and_passes_gradients(head_dim):
+    """`pad_last`: the copy the flash wrapper makes of q/k/v whose
+    head_dim is not a multiple of 8 (TMA rows are 16 bytes apart): zeros
+    past D, the values before it, and gradients back to the original
+    (the pad's dropped)."""
+    from cloud_tpu_torch.ops._layout import pad_last
+
+    t = torch.randn(2, 5, 3, head_dim, requires_grad=True)
+    got = pad_last(t, 8)
+    width = -(-head_dim // 8) * 8
+    assert got.shape == (2, 5, 3, width) and got.is_contiguous()
+    assert torch.equal(got[..., :head_dim], t)
+    assert not got[..., head_dim:].any()
+    grad = torch.randn(got.shape)
+    got.backward(grad)
+    assert torch.equal(t.grad, grad[..., :head_dim])
+    even = torch.zeros(2, 8)
+    assert pad_last(even, 8) is even

@@ -221,8 +221,8 @@ def test_converters_round_trip_bit_equal():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="decode"):
-        LlamaLM(decode=True, device="cpu", **CFG)
+    # decode=True is ported (tests/test_torch_llama_decode.py).
+    assert LlamaLM(decode=True, device="cpu", **CFG).decode
     with pytest.raises(NotImplementedError, match="moe_experts"):
         LlamaLM(moe_experts=4, device="cpu", **CFG)
     for impl in ("ring", "ulysses"):

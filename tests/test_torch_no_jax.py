@@ -1,6 +1,8 @@
 """The port stands alone: no file of `cloud_tpu_torch/` nor
-`chip_smoke.py` imports jax, flax, optax or the JAX package, and the
-port's entry points default to the CUDA card."""
+`chip_smoke.py` imports jax, flax, optax, the JAX package or
+`transformers` (the card machine has none of them; the HF importers
+read a model's `.config` and `.state_dict()`), and the port's entry
+points default to the CUDA card."""
 
 import ast
 import os
@@ -10,7 +12,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cloud_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cloud_tpu", "transformers")
 
 
 def _port_files():

@@ -221,3 +221,24 @@ def test_cost_counts_pages_and_scales():
     kv_fp = 2 * 8 * 1024 * 12 * 64 * 2
     assert fp["bytes_moved"] - q8["bytes_moved"] == kv_fp / 2 - (
         2 * 8 * 64 * 12 * 4)
+
+
+def test_paged_decode_attention_is_the_jax_name():
+    """`ops.paged_decode_attention` takes the JAX function's arguments
+    and returns the port's `paged_attention` (here its plain version)
+    within 2e-5 of JAX's `paged_decode_attention` on the CPU; the port
+    has no interpret mode."""
+    from cloud_tpu_torch import ops
+
+    inputs = _scenario(seq=2)
+    q, kp, vp, pt, allowed = _torch(inputs)
+    got = ops.paged_decode_attention(q, kp, vp, pt, allowed, sm_scale=0.2,
+                                     interpret=None)
+    assert torch.equal(got, tpa.paged_attention(q, kp, vp, pt, allowed,
+                                                sm_scale=0.2))
+    want = jpa.paged_decode_attention(*_jax(inputs), sm_scale=0.2)
+    live = inputs[-1].any(-1)
+    np.testing.assert_allclose(got.numpy()[live], np.asarray(want)[live],
+                               rtol=F32_TOL, atol=F32_TOL)
+    with pytest.raises(ValueError, match="interpret"):
+        ops.paged_decode_attention(q, kp, vp, pt, allowed, interpret=True)
