@@ -33,9 +33,14 @@ then:
    sm_scale 1/16; without and with window 512), and head_dims that are
    no template width: Phi-3-mini's attention (B 2, S 2048, H 32, D 96),
    phi-2's D 80 at the same shape, D 32 and D 36 (through the
-   zero-padded copy) and D 96 in f32 at a small shape; then times each
-   kernel at the GPT-2, the TinyLlama, the Gemma-2, the Phi-3-mini and
-   the phi-2 shapes beside its bound,
+   zero-padded copy) and D 96 in f32 at a small shape; Qwen3-30B-A3B's
+   attention (B 2, S 2048, H 32, H_kv 4, D 128); and head_dims past 256
+   on the wide kernels: DeepSeek-V4-Flash's dense attention (B 1, S
+   2048, 64 heads over 1 KV head, D 512), D 264, D 320 with window,
+   softcap and key mask, D 576 over one KV head and f32 D 320; then
+   times each kernel at the GPT-2, the TinyLlama, the Gemma-2, the
+   Phi-3-mini, the phi-2, the Qwen3-30B-A3B and the DeepSeek-V4-Flash
+   shapes beside its bound,
    the plain version and scaled_dot_product_attention (forward; the
    whole backward, beside the port's whole backward: delta, dq and
    dk/dv), which the port never calls, and the host time of each
@@ -90,7 +95,20 @@ then:
    tokens/s, busy share and top kernels under torch.profiler over 20
    steps) and the norm and MLP kernels at rows 8 beside their bounds,
    plain versions and library calls;
-9. prints the kernel table as one JSON line (one row per kernel and
+9. trains Qwen3-30B-A3B (`QWEN3_30B_A3B`: full width, all 128 experts,
+   top 8, 4 of its 48 layers, bf16, batch 2 x 2048, capacity factor
+   2.0, aux_loss_weight 0.01) the same way for QWEN3_EPOCHS epochs of
+   QWEN3_STEPS steps: the one-step check against attention and norm by
+   their plain versions, the experts' routes of the two runs compared
+   first; every step launching each flash kernel once per layer and the
+   norm kernels 2 x layers + 1 times (no MLP kernel: the experts are
+   plain products); the loss gate; step time, tokens/s, MFU on the
+   active parameters, busy share and top kernels; the aux loss per
+   epoch and the expert load (routes per expert, share dropped) at the
+   first and last step; then sets the model drop-free and generates
+   with it and its `import_hf_llama` copy (as `qwen3_moe`) as phase 8
+   does (the chain rule held only if the fit left the cycle plateau);
+10. prints the kernel table as one JSON line (one row per kernel and
    path that launches it, with that path's launches and the times at
    its shape), the card line, and the contract line
    `{"ok": true, "device": {...}}` last.
@@ -564,6 +582,12 @@ def tick_breakdown(model):
 
 # -- phase 3: flash attention against its plain version --------------
 
+# (B, S, H, H_kv, D): Qwen3-30B-A3B's attention at phase 9's batch, and
+# DeepSeek-V4-Flash's dense attention (64 heads over one KV head, head_dim
+# 512) at B 1, S 2048.
+QWEN3_ATTENTION = (2, 2048, 32, 4, 128)
+DEEPSEEK_V4_ATTENTION = (1, 2048, 64, 1, 512)
+
 FLASH_CASES = (
     # name, dtype, (B, S, H, H_kv, D), kwargs, mask kind, q scale
     ("gpt2_bf16", "bf16", (8, 1024, 12, 12, 64), dict(causal=True), None, 1),
@@ -612,6 +636,22 @@ FLASH_CASES = (
     ("d32_bf16", "bf16", (2, 300, 8, 4, 32), dict(causal=True), "dead", 1),
     ("d36_bf16", "bf16", (2, 300, 8, 4, 36), dict(causal=True), "dead", 1),
     ("d96_f32", "f32", (2, 300, 8, 4, 96), dict(causal=True), "dead", 1),
+    # Qwen3-30B-A3B's attention (phase 9's training shape: 32 heads over 4
+    # KV heads, head_dim 128) at B 2, S 2048.
+    ("qwen3moe_bf16", "bf16", QWEN3_ATTENTION, dict(causal=True), None, 1),
+    # head_dims past the widest template: the wide kernels. The dense
+    # attention of the public deepseek-ai/DeepSeek-V4-Flash (64 heads over
+    # one KV head, head_dim 512) at B 1, S 2048; D 264, D 320 with window,
+    # softcap and key mask (q x 4: logits of std ~4 against the cap of 8),
+    # D 576 (sarvam-105b's) over one KV head, and f32 at D 320, at a small
+    # shape.
+    ("deepseek_v4_flash_d512_bf16", "bf16", DEEPSEEK_V4_ATTENTION,
+     dict(causal=True), None, 1),
+    ("d264_bf16", "bf16", (2, 300, 8, 4, 264), dict(causal=True), "dead", 1),
+    ("d320_window_softcap_mask_bf16", "bf16", (2, 300, 8, 4, 320),
+     dict(causal=True, window=64, logit_softcap=8.0), "dead", 4),
+    ("d576_bf16", "bf16", (2, 300, 8, 1, 576), dict(causal=True), None, 1),
+    ("d320_f32", "f32", (2, 300, 8, 4, 320), dict(causal=True), "dead", 1),
 )
 GEMMA2_ATTENTION = (2, 2048, 8, 4, 256)
 PHI3_ATTENTION = (2, 2048, 32, 32, 96)
@@ -619,7 +659,8 @@ PHI2_ATTENTION = (2, 2048, 32, 32, 80)
 # The case at each training path's shape; its errors go into that path's
 # rows of the kernel table.
 FLASH_PATH_CASES = {"gpt2_bf16": "gpt2_train",
-                    "tinyllama_bf16": "tinyllama_train"}
+                    "tinyllama_bf16": "tinyllama_train",
+                    "qwen3moe_bf16": "qwen3moe_train"}
 
 
 def flash_inputs(rng, dtype, shape, mask_kind, device, q_scale=1):
@@ -811,6 +852,33 @@ def host_us(fn, n=200):
     return (t1 - t0) / n * 1e6
 
 
+def sdpa_backends(call):
+    """Which scaled_dot_product_attention backends take `call`'s inputs
+    (each alone under `sdpa_kernel`) and the device kernels the default
+    call launched (torch.profiler): the flash backend stops at head_dim
+    256, so a wide head_dim runs another."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    accepted = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                call()
+            accepted.append(backend.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = sorted({evt.name[:80] for evt in prof.events()
+                    if evt.device_type == torch.autograd.DeviceType.CUDA})
+    return {"accepted": accepted, "kernels": names}
+
+
 def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     """Each kernel at a training shape (B, S, H, H_kv, D; bf16, causal;
     GPT-2's by default) by CUDA graph replays, beside its bound, the
@@ -847,7 +915,7 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     # The forward's C entry point alone, on arguments built once: what the
     # tensor-map encodes and the launch cost the host, apart from the
     # Python wrapper's checks, allocations and stream lookup.
-    fn = tatt._library(q.dtype).flash_attention_forward
+    fn = tatt._library(q.dtype, head_dim).flash_attention_forward
     out_c, lse_c = torch.empty_like(out), torch.empty_like(lse)
     args = (tatt._KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None, out_c.data_ptr(), lse_c.data_ptr(),
@@ -868,6 +936,7 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
                                                   **gqa)
 
     plain_f = timed_ms(plain_fwd)
+    backends = sdpa_backends(sdpa_fwd)
     plain_b, plain_kernels = backward_ms(
         tatt.mha_reference(*leaves, causal=True), leaves, dout)
     lib_f = timed_ms(sdpa_fwd)
@@ -879,6 +948,7 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     # through `flash_attention`'s autograd.
     port_b, port_kernels = backward_ms(
         tatt.flash_attention(*leaves, causal=True), leaves, dout)
+    rows["sdpa"] = backends
     rows["backward"] = {"port_ms": port_b, "port_kernels": port_kernels,
                         "delta_ms": timed_ms(lambda: tatt._delta(dout, out)),
                         "sdpa_ms": lib_b, "sdpa_kernels": lib_kernels,
@@ -901,6 +971,8 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
                 name, *shape, row["ms"], row["bound_ms"], row["bound_by"],
                 row["flops"] / row["ms"] / 1e9, plain, lib,
                 row["host_us"]))
+    log("sdpa at this shape: backends that take it {}; the default call "
+        "ran {}".format(backends["accepted"], backends["kernels"]))
     log("host per forward launch: {:.1f} us through the wrapper, {:.1f} us "
         "for the C entry point alone (tensor-map encodes and the launch)"
         .format(rows["flash_attention_fwd"]["host_us"],
@@ -1138,6 +1210,7 @@ def train(device):
         "device_busy_share": prof["device_busy_share"],
         "flash_share_of_device": prof["matched_share_of_device"],
         "device_ms_per_step": prof["device_ms_per_step"],
+        "kernels_per_step": prof["kernels_per_step"],
         "top_kernels": prof["top_kernels"],
         "evaluate": val, "predict_loss_2_seqs": pred_loss,
         "evaluate_loss_2_seqs": val2["loss"],
@@ -1174,7 +1247,8 @@ def profile_steps(step, match, n=3):
     busy share (the union of the device events' intervals over the host
     wall time; events may overlap, so their sum may exceed it), device
     ms per step, the share of device time in kernels whose name holds
-    one of `match`, and the top 10 kernels by device time."""
+    one of `match`, the device kernels launched per step, and the top
+    10 kernels by device time."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -1212,6 +1286,7 @@ def profile_steps(step, match, n=3):
         "device_busy_share": (device_us / prof_wall_us if device_us > 0
                               else None),
         "device_ms_per_step": total_us / 1e3 / n,
+        "kernels_per_step": len(spans) / n,
         "matched_share_of_device": (matched_us / total_us if total_us
                                     else None),
         "top_kernels": [{"name": k[:120], "ms_per_step": v / 1e3 / n,
@@ -1570,12 +1645,17 @@ def all_launches():
     return out
 
 
-def expected_llama_launches(layers, steps):
+def expected_llama_launches(layers, steps, mlp=True):
+    """Launches of `steps` training steps of a LlamaLM: each flash kernel
+    and the norm with the residual once per layer, the norm without it
+    once per layer and for the final norm, each MLP kernel once per layer
+    (none where MoE blocks take the MLP's place, `mlp=False`)."""
+    mlps = layers * steps if mlp else 0
     return {"flash_attention_fwd": layers * steps,
             "flash_attention_dq": layers * steps,
             "flash_attention_dkdv": layers * steps,
-            "fused_mlp_gate_up": layers * steps,
-            "fused_mlp_down": layers * steps,
+            "fused_mlp_gate_up": mlps,
+            "fused_mlp_down": mlps,
             "fused_norm": layers * steps,
             "fused_norm_noresidual": (layers + 1) * steps,
             "paged_attention": 0, "paged_attention_int8": 0}
@@ -1585,9 +1665,16 @@ def llama_one_step_check(model, x, y):
     """Loss and every parameter's gradient norm of one step from the
     model's current weights, on the kernels and with attention, norm and
     MLP all swapped for their plain versions. Parameters whose gradient
-    is exactly zero on the plain run are excluded and named."""
+    is exactly zero on the plain run are excluded and named. With MoE
+    blocks, the experts each token was routed to in the two runs are
+    compared first, and the share of routes that differ is reported."""
     import torch
     import torch.nn.functional as F
+
+    routes = []
+    hooks = [block.moe.register_forward_pre_hook(
+        lambda mod, args: routes.append(mod.route(args[0])[1].detach()))
+        for block in model.blocks if hasattr(block, "moe")]
 
     def step():
         model.zero_grad(set_to_none=True)
@@ -1602,8 +1689,10 @@ def llama_one_step_check(model, x, y):
 
     reset_all_launches()
     loss_k, norms_k = step()
+    routes_k, routes[:] = list(routes), []
     launched = all_launches()
-    want = expected_llama_launches(model.num_layers, 1)
+    want = expected_llama_launches(model.num_layers, 1,
+                                   mlp=not model.moe_experts)
     if launched != want:
         raise AssertionError("one-step check launched {}; expected {}"
                              .format(launched, want))
@@ -1617,8 +1706,17 @@ def llama_one_step_check(model, x, y):
     with plain_kernels_swapped():
         loss_p, norms_p = step()
     peak = torch.cuda.max_memory_allocated() - base
+    for hook in hooks:
+        hook.remove()
     if any(all_launches()[k] != want[k] for k in want):
         raise AssertionError("the plain run launched a kernel")
+    flipped = None
+    if routes_k:
+        flipped = float(sum(int((a != b).sum()) for a, b in
+                            zip(routes_k, routes))
+                        / sum(a.numel() for a in routes_k))
+        log("one-step check: {:.4%} of the routes (token, slot) differ "
+            "between the kernel run and the plain run".format(flipped))
     excluded = sorted(n for n, v in norms_p.items() if v == 0.0)
     worst, worst_name = 0.0, None
     for name, value in norms_p.items():
@@ -1643,16 +1741,18 @@ def llama_one_step_check(model, x, y):
             "loss_rel_diff": loss_rel, "worst_grad_norm_rel_diff": worst,
             "worst_grad_norm_param": worst_name, "excluded": excluded,
             "plain_attention_bytes_reckoned": reckoned,
-            "plain_run_peak_bytes": peak}
+            "plain_run_peak_bytes": peak, "routes_flipped_share": flipped}
 
 
-def llama_data(seed, vocab):
-    """Phase 7's data from `seed`: LLAMA_STEPS batches to train on (x,
-    y) and two to validate (x_val, y_val), with the entropy of the next
-    token given the current one, the cycle level and the loss gate read
-    from the training part."""
-    n_train = LLAMA_BATCH * LLAMA_STEPS
-    x, y = training_data(seed, n_train + 2 * LLAMA_BATCH, vocab, LLAMA_SEQ)
+def llama_data(seed, vocab, batch=LLAMA_BATCH, steps=LLAMA_STEPS,
+               n_val=2 * LLAMA_BATCH):
+    """Phase 7's data from `seed` (phase 9's with its batch and steps):
+    `steps` batches to train on (x, y) and `n_val` sequences to validate
+    (x_val, y_val; generate's prompts are cut from them), with the
+    entropy of the next token given the current one, the cycle level and
+    the loss gate read from the training part."""
+    n_train = batch * steps
+    x, y = training_data(seed, n_train + n_val, vocab, LLAMA_SEQ)
     out = {"x": x[:n_train], "y": y[:n_train], "x_val": x[n_train:],
            "y_val": y[n_train:]}
     out["entropy"] = next_token_entropy(out["x"], out["y"])
@@ -1661,28 +1761,31 @@ def llama_data(seed, vocab):
     return out
 
 
-def llama_fit(model, x, y):
-    """Phase 7's fit of (x, y): AdamW, warmup-cosine to LLAMA_LR over
-    LLAMA_EPOCHS epochs, with the launches counted from 0 around it and
-    held to layers x steps. Returns (trainer, history, launches, fit
-    seconds)."""
+def llama_fit(model, x, y, batch=LLAMA_BATCH, epochs=LLAMA_EPOCHS,
+              peak_lr=LLAMA_LR):
+    """Phase 7's fit of (x, y) (phase 9's with its batch, epochs and
+    rate): AdamW, warmup-cosine to `peak_lr` over `epochs` epochs, the
+    Trainer's default aux_loss_weight (0.01) on MoE aux losses, with the
+    launches counted from 0 around it and held to layers x steps.
+    Returns (trainer, history, launches, fit seconds)."""
     import torch
     from cloud_tpu_torch.training import Trainer, make_optimizer
     from cloud_tpu_torch.training.schedules import warmup_cosine
 
-    total = LLAMA_EPOCHS * LLAMA_STEPS
+    total = epochs * (len(x) // batch)
     trainer = Trainer(model, optimizer=make_optimizer(
-        "adamw", warmup_cosine(LLAMA_LR, total, total // 10)),
+        "adamw", warmup_cosine(peak_lr, total, total // 10)),
         metrics=("accuracy",), seed=0)
     reset_all_launches()
     t0 = time.monotonic()
-    history = trainer.fit(x, y, batch_size=LLAMA_BATCH, epochs=LLAMA_EPOCHS,
+    history = trainer.fit(x, y, batch_size=batch, epochs=epochs,
                           verbose=False)
     torch.cuda.synchronize()
     fit_s = time.monotonic() - t0
     launches = all_launches()
     steps = trainer.state.step
-    want = expected_llama_launches(model.num_layers, steps)
+    want = expected_llama_launches(model.num_layers, steps,
+                                   mlp=not model.moe_experts)
     if steps != total or launches != want:
         raise AssertionError("llama fit launched {} over {} steps; expected "
                              "{}".format(launches, steps, want))
@@ -1763,6 +1866,7 @@ def train_llama(device):
         "device_busy_share": prof["device_busy_share"],
         "port_kernels_share_of_device": prof["matched_share_of_device"],
         "device_ms_per_step": prof["device_ms_per_step"],
+        "kernels_per_step": prof["kernels_per_step"],
         "top_kernels": prof["top_kernels"],
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "evaluate": val, "predict_loss_2_seqs": pred_loss,
@@ -1795,21 +1899,29 @@ GEN_CHAIN_RATE = 0.9
 GEN_STEPS_TIMED = 20
 
 
-def hf_state_of(model):
-    """The port's `LlamaLM` state dict under HF Llama names (the port's
-    weights are HF's [out, in] already and TinyLlama's RoPE is
-    rotate-half, so this is renames), and the HF config dict of
-    TINYLLAMA_1_1B: what `import_hf_llama` reads from a checkpoint."""
-    from cloud_tpu_torch.models import TINYLLAMA_1_1B as cfg
+def hf_state_of(model, cfg=None, model_type="llama"):
+    """The port's `LlamaLM` state dict under HF names (the port's weights
+    are HF's [out, in] already and both models' RoPE is rotate-half, so
+    this is renames; a Qwen3-MoE router and experts are HF's [E, d]
+    gate and per-expert [out, in] projections, transposed views), and
+    the HF config dict of `cfg` (TINYLLAMA_1_1B by default; model_type
+    "qwen3_moe" adds the MoE keys): what `import_hf_llama` reads from a
+    checkpoint."""
+    from cloud_tpu_torch.models import TINYLLAMA_1_1B
 
+    cfg = cfg or TINYLLAMA_1_1B
     renames = {"norm_attn": "input_layernorm",
                "norm_mlp": "post_attention_layernorm",
                "attention.query": "self_attn.q_proj",
                "attention.key": "self_attn.k_proj",
                "attention.value": "self_attn.v_proj",
                "attention.out": "self_attn.o_proj",
+               "attention.q_norm": "self_attn.q_norm",
+               "attention.k_norm": "self_attn.k_norm",
                "mlp.gate": "mlp.gate_proj", "mlp.up": "mlp.up_proj",
                "mlp.down": "mlp.down_proj"}
+    experts = {"expert_gate": "gate_proj", "expert_up": "up_proj",
+               "expert_down": "down_proj"}
     state = {}
     for name, tensor in model.state_dict().items():
         if name == "embed.weight":
@@ -1820,10 +1932,17 @@ def hf_state_of(model):
             state[name] = tensor
         else:
             _, layer, rest = name.split(".", 2)
-            module = rest[:-len(".weight")]
-            state["model.layers.{}.{}.weight".format(
-                layer, renames[module])] = tensor
-    config = {"model_type": "llama", "vocab_size": cfg["vocab_size"],
+            hf = "model.layers.{}.".format(layer)
+            if rest == "moe.router":
+                state[hf + "mlp.gate.weight"] = tensor.T
+            elif rest.startswith("moe."):
+                for e in range(tensor.shape[0]):
+                    state[hf + "mlp.experts.{}.{}.weight".format(
+                        e, experts[rest[4:]])] = tensor[e].T
+            else:
+                state[hf + renames[rest[:-len(".weight")]] + ".weight"] = \
+                    tensor
+    config = {"model_type": model_type, "vocab_size": cfg["vocab_size"],
               "hidden_size": cfg["d_model"],
               "intermediate_size": cfg["d_ff"],
               "num_hidden_layers": cfg["num_layers"],
@@ -1833,7 +1952,31 @@ def hf_state_of(model):
               "rope_theta": cfg["rope_theta"],
               "rms_norm_eps": cfg["norm_eps"], "hidden_act": "silu",
               "tie_word_embeddings": False}
+    if model_type == "qwen3_moe":
+        config.update(head_dim=cfg["head_dim"], num_experts=cfg["moe_experts"],
+                      num_experts_per_tok=cfg["moe_top_k"],
+                      moe_intermediate_size=cfg["d_ff"],
+                      norm_topk_prob=cfg["moe_norm_topk"],
+                      decoder_sparse_step=1, mlp_only_layers=[])
     return state, config
+
+
+def route_recorder(model):
+    """Forward pre-hooks on each MoE block of `model` that record the
+    experts every token of each call takes ([T, k], per layer, per
+    call). Returns (the lists, by layer; the hooks)."""
+    import torch
+
+    routes = [[] for _ in model.blocks]
+
+    def hook(i):
+        def record(mod, args):
+            with torch.no_grad():
+                routes[i].append(mod.route(args[0])[1])
+        return record
+
+    return routes, [block.moe.register_forward_pre_hook(hook(i))
+                    for i, block in enumerate(model.blocks)]
 
 
 def chain_map(x, y):
@@ -1844,16 +1987,18 @@ def chain_map(x, y):
                     tokens[:, 2:].ravel().tolist()))
 
 
-def expected_generate_launches(layers, new_tokens):
+def expected_generate_launches(layers, new_tokens, mlp=True):
     """Launches of one generate() call: the model runs once per token
     (the prefill, then a step per further token); each run launches the
     norm with the residual once per layer and without it once per layer
-    and once for the final norm, each MLP kernel once per layer, and no
-    attention kernel (decode attention is plain PyTorch)."""
+    and once for the final norm, each MLP kernel once per layer (none
+    with MoE blocks, `mlp=False`), and no attention kernel (decode
+    attention is plain PyTorch)."""
+    mlps = layers * new_tokens if mlp else 0
     return {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkdv": 0,
-            "fused_mlp_gate_up": layers * new_tokens,
-            "fused_mlp_down": layers * new_tokens,
+            "fused_mlp_gate_up": mlps,
+            "fused_mlp_down": mlps,
             "fused_norm": layers * new_tokens,
             "fused_norm_noresidual": (layers + 1) * new_tokens,
             "paged_attention": 0, "paged_attention_int8": 0}
@@ -1863,50 +2008,24 @@ def decode_kernel_rows(model, device, rows=GEN_BATCH):
     """The norm and MLP kernels at a decode step's shape (rows = the
     batch, TinyLlama's widths, bf16), each against its plain version,
     timed by CUDA-graph replays beside its byte bound, the plain version
-    and the library call (F.rms_norm of x + r; the F.linear calls of the
-    plain MLP). The MLP kernels read every layer's weights in turn (22
-    calls per replay, 1.5 GB), as a decode step does, so they come from
-    device memory, not from L2. Returns rows by kernel name."""
+    and the library call (`norm_rows_at` for the norm; the F.linear
+    calls of the plain MLP). The MLP kernels read every layer's weights
+    in turn (22 calls per replay, 1.5 GB), as a decode step does, so
+    they come from device memory, not from L2. Returns rows by kernel
+    name."""
     import torch
     import torch.nn.functional as F
     from cloud_tpu_torch.ops import fused_mlp as tfm
-    from cloud_tpu_torch.ops import fused_norm as tfn
 
     rng = np.random.default_rng(30)
     dt = torch.bfloat16
-    d, f, eps = model.d_model, model.d_ff, model.norm_eps
+    d, f = model.d_model, model.d_ff
 
     def t(*shape):
         return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
                             dtype=dt, device=device)
 
-    out = {}
-    x, r = t(rows, d), t(rows, d)
-    scale = model.blocks[0].norm_mlp.weight.detach()
-    for kernel, res in (("fused_norm", r), ("fused_norm_noresidual", None)):
-        normed, _ = tfn._launch(x, res, scale, eps, dt)
-        plain, _ = tfn.rmsnorm_residual_reference(x, scale, res, eps,
-                                                  out_dtype=torch.float32)
-        err = compare(normed, plain, *NORM_TOL["bf16"])
-        if not err["tol_ratio"] <= 1.0:
-            raise AssertionError("{} at rows {}: error {:.3e} of the bound"
-                                 .format(kernel, rows, err["tol_ratio"]))
-
-        def library(res=res):
-            h = x if res is None else x + res
-            return F.rms_norm(h, (d,), scale, eps), h
-
-        cost = tfn.fused_norm_cost((rows, d), dt,
-                                   with_residual=res is not None)
-        row = out[kernel] = {
-            "ms": timed_ms(lambda res=res: tfn._launch(x, res, scale, eps,
-                                                       dt)),
-            "plain_ms": timed_ms(
-                lambda res=res: tfn.rmsnorm_residual_reference(
-                    x, scale, res, eps)),
-            "library_ms": timed_ms(library),
-            "max_abs_err": err["max_abs_err"], "rows": rows}
-        row["bound_ms"], row["bound_by"] = bound_of(cost)
+    out = norm_rows_at(device, rows, model.norm_eps)
     weights = [(b.mlp.gate.weight.detach().to(dt),
                 b.mlp.up.weight.detach().to(dt),
                 b.mlp.down.weight.detach().to(dt)) for b in model.blocks]
@@ -1953,7 +2072,8 @@ def decode_kernel_rows(model, device, rows=GEN_BATCH):
                              "max_abs_err": err["max_abs_err"],
                              "rows": rows}
         row["bound_ms"], row["bound_by"] = bound_of(cost[part])
-    for kernel, row in out.items():
+    for kernel in ("fused_mlp_gate_up", "fused_mlp_down"):
+        row = out[kernel]
         log("kernel {} at decode rows {} (D {}, d_ff {}, bf16): {:.4f} ms "
             "(bound {:.4f} ms by {}), plain {:.4f} ms, library {:.4f} ms; "
             "max abs err {:.3e}".format(
@@ -1965,25 +2085,34 @@ def decode_kernel_rows(model, device, rows=GEN_BATCH):
     return out
 
 
-def generate_llama(model, data, device):
-    """Phase 8: TinyLlama-1.1B (phase 7's trained model) through
-    `generate()`, and the same weights imported by `import_hf_llama` from
-    an HF-named state dict. Checks (a) the imported model's greedy tokens
-    equal the trained model's; (b) each greedy token lies within
-    LOGIT_MARGIN of the row max of an f32 teacher-forced training forward
-    over prompt + continuation and is its argmax at MIN_EXACT of
-    positions; (c) the continuation follows the chain rule at
-    GEN_CHAIN_RATE; (d) one generate() call's launches
-    (`expected_generate_launches`); (e) two sampled calls with one seed
-    agree. Times the prefill, the decode step and one generate() call,
-    and 20 steps under the profiler. Returns (launches of the trained
-    model's greedy call, kernel rows at decode rows, summary)."""
+def generate_llama(model, data, device, cfg=None, model_type="llama",
+                   label="llama", chain_taught=True):
+    """Phase 8: TinyLlama-1.1B (phase 7's trained model; phase 9: another
+    `cfg` and HF `model_type`) through `generate()`, and the same weights
+    imported by `import_hf_llama` from an HF-named state dict. Checks (a)
+    the imported model's greedy tokens equal the trained model's; (b)
+    each greedy token lies within LOGIT_MARGIN of the row max of an f32
+    teacher-forced training forward over prompt + continuation and is
+    its argmax at MIN_EXACT of positions (with MoE blocks the margin holds
+    where the predicting token took the same experts in every layer in
+    the decode and in the f32 forward: where a router's top k is a near
+    tie, bf16 and f32 may pick different experts, and the forward then
+    computes another function; those positions are counted and their
+    largest gap reported); (c) the continuation follows
+    the chain rule at GEN_CHAIN_RATE (where the fit taught the chains,
+    `chain_taught`; else the rate is reported); (d) one generate()
+    call's launches (`expected_generate_launches`); (e) two sampled
+    calls with one seed agree. Times the prefill, the decode step and
+    one generate() call, and 20 steps under the profiler. Returns
+    (launches of the trained model's greedy call, kernel rows at decode
+    rows (None with MoE blocks, which run no MLP kernel), summary)."""
     import torch
     from cloud_tpu_torch.models import (TINYLLAMA_1_1B, LlamaLM, decoding,
                                         generate, import_hf_llama)
 
+    cfg = cfg or TINYLLAMA_1_1B
     t_phase = time.monotonic()
-    state, config = hf_state_of(model)
+    state, config = hf_state_of(model, cfg, model_type)
     t0 = time.monotonic()
     imported = import_hf_llama(state_dict=state, config=config,
                                compute_dtype=torch.bfloat16, device=device)
@@ -2002,13 +2131,18 @@ def generate_llama(model, data, device):
         prompt[row, width - n:] = x_val[row, :n]
         mask[row, width - n:] = True
 
+    moe = bool(model.moe_experts)
+    decode_routes, hooks = route_recorder(model) if moe else (None, [])
     reset_all_launches()
     t0 = time.monotonic()
     greedy = generate(model, prompt, GEN_NEW, temperature=0.0,
                       prompt_mask=mask).numpy()
     generate_s = time.monotonic() - t0
     launches = all_launches()
-    want = expected_generate_launches(model.num_layers, GEN_NEW)
+    for hook in hooks:
+        hook.remove()
+    want = expected_generate_launches(model.num_layers, GEN_NEW,
+                                      mlp=not model.moe_experts)
     if launches != want:
         raise AssertionError("generate launched {}; expected {}".format(
             launches, want))
@@ -2029,11 +2163,13 @@ def generate_llama(model, data, device):
 
     # (b) teacher-forced f32 forward over each row's real tokens.
     ref = LlamaLM(compute_dtype=torch.float32, device=device, seed=None,
-                  **TINYLLAMA_1_1B)
+                  **cfg)
     ref.load_state_dict(model.state_dict())
-    gaps, exact = [], []
+    ref_routes, hooks = route_recorder(ref) if moe else (None, [])
+    gaps, exact, agree = [], [], []
     follows = []
     step2 = chain_map(data["x"], data["y"])
+    prefill_len = decoding.bucket_length(width, model.max_seq_len - GEN_NEW)
     for row, n in enumerate(GEN_PROMPT_LENS):
         seq = np.concatenate([x_val[row, :n], greedy[row, width:]])
         with torch.no_grad():
@@ -2045,21 +2181,44 @@ def generate_llama(model, data, device):
         exact.append((pred.argmax(-1) == toks).cpu().numpy())
         follows += [step2.get(int(seq[p - 2])) == int(seq[p])
                     for p in range(n, n + GEN_NEW)]
+        if moe:
+            # New token j was predicted by call j of generate() (0: the
+            # prefill, whose row `row` ends at flat index (row + 1) *
+            # prefill_len - 1; then one step of GEN_BATCH tokens per
+            # call), by position n - 1 + j of the forward.
+            agree.append(np.array([all(
+                torch.equal(
+                    calls[j][(row + 1) * prefill_len - 1 if j == 0
+                             else row].sort().values,
+                    forward[-1][n - 1 + j].sort().values)
+                for calls, forward in zip(decode_routes, ref_routes))
+                for j in range(GEN_NEW)]))
+            for forward in ref_routes:
+                forward.clear()
+    for hook in hooks:
+        hook.remove()
     del ref
     torch.cuda.empty_cache()
     gaps, exact = np.concatenate(gaps), np.concatenate(exact)
+    agree = np.concatenate(agree) if moe else np.ones(gaps.shape, bool)
     chain_rate = float(np.mean(follows))
-    log("llama generate: {} prompts of {}-{} tokens left-padded to {} "
+    log("{} generate: {} prompts of {}-{} tokens left-padded to {} "
         "(bucket 512), {} new tokens; imported model's tokens equal: yes; "
-        "greedy tokens vs the f32 forward: max gap {:.4f} (limit {}), exact "
-        "argmax {:.4f} (at least {}); chain rule followed {:.4f} (at least "
-        "{}); sampled calls with one seed equal: yes".format(
-            GEN_BATCH, min(GEN_PROMPT_LENS), width, width, GEN_NEW,
-            gaps.max(), LOGIT_MARGIN[""], exact.mean(), MIN_EXACT,
-            chain_rate, GEN_CHAIN_RATE))
-    if not (gaps.max() <= LOGIT_MARGIN[""] and exact.mean() >= MIN_EXACT):
+        "greedy tokens vs the f32 forward: max gap {:.4f} (limit {}) at the "
+        "{} positions whose predicting token took the same experts in both "
+        "(of {}; the max gap at the others {:.4f}), exact argmax {:.4f} (at "
+        "least {}); chain rule followed {:.4f} ({}); sampled calls with one "
+        "seed equal: yes".format(
+            label, GEN_BATCH, min(GEN_PROMPT_LENS), width, width, GEN_NEW,
+            gaps[agree].max(), LOGIT_MARGIN[""], int(agree.sum()),
+            agree.size, gaps[~agree].max() if (~agree).any() else 0.0,
+            exact.mean(), MIN_EXACT, chain_rate,
+            "at least {}".format(GEN_CHAIN_RATE) if chain_taught
+            else "not gated: the fit did not leave the cycle plateau"))
+    if not (gaps[agree].max() <= LOGIT_MARGIN[""]
+            and exact.mean() >= MIN_EXACT):
         raise AssertionError("greedy tokens disagree with the f32 forward")
-    if not chain_rate >= GEN_CHAIN_RATE:
+    if chain_taught and not chain_rate >= GEN_CHAIN_RATE:
         raise AssertionError("the continuation follows the chain rule at "
                              "{:.4f} < {}".format(chain_rate,
                                                   GEN_CHAIN_RATE))
@@ -2094,36 +2253,319 @@ def generate_llama(model, data, device):
                          n=GEN_STEPS_TIMED)
     del cache, logits
     step_s = float(np.median(step_times))
-    rows = decode_kernel_rows(model, device)
+    rows = None if model.moe_experts else decode_kernel_rows(model, device)
     summary = {
         "batch": GEN_BATCH, "new_tokens": GEN_NEW,
         "prompt_lens": list(GEN_PROMPT_LENS), "bucket": bucket,
         "import_s": import_s, "generate_s": generate_s,
         "generate_tokens_per_s": GEN_BATCH * GEN_NEW / generate_s,
         "launches": launches, "max_logit_gap": float(gaps.max()),
+        "max_logit_gap_same_experts": float(gaps[agree].max()),
+        "positions_same_experts": int(agree.sum()),
         "exact_argmax_share": float(exact.mean()),
-        "chain_rule_rate": chain_rate,
+        "chain_rule_rate": chain_rate, "chain_rule_gated": chain_taught,
         "prefill_ms": min(prefill_times) * 1e3,
         "prefill_times_s": prefill_times,
         "step_p50_ms": step_s * 1e3, "step_times_s": step_times,
         "step_tokens_per_s": GEN_BATCH / step_s,
         "device_busy_share": prof["device_busy_share"],
         "device_ms_per_step": prof["device_ms_per_step"],
+        "kernels_per_step": prof["kernels_per_step"],
         "port_kernels_share_of_device": prof["matched_share_of_device"],
         "top_kernels": prof["top_kernels"], "kernel_rows": rows,
         "greedy_tokens": greedy[:, width:].tolist(),
         "phase_s": time.monotonic() - t_phase}
-    log("llama generate: import {:.2f} s; generate() of {} x {} tokens "
+    log("{} generate: import {:.2f} s; generate() of {} x {} tokens "
         "{:.2f} s ({:.1f} tokens/s); prefill (8 x {}) {:.2f} ms; decode "
-        "step p50 {:.2f} ms ({:.1f} tokens/s), device {:.2f} ms/step, busy "
-        "{}, the port's kernels {} of device time; phase {:.1f} s".format(
-            import_s, GEN_BATCH, GEN_NEW, generate_s,
+        "step p50 {:.2f} ms ({:.1f} tokens/s), device {:.2f} ms/step in "
+        "{:.0f} kernels, busy {}, the port's kernels {} of device time; "
+        "phase {:.1f} s".format(
+            label, import_s, GEN_BATCH, GEN_NEW, generate_s,
             summary["generate_tokens_per_s"], bucket, summary["prefill_ms"],
             step_s * 1e3, GEN_BATCH / step_s, prof["device_ms_per_step"],
-            prof["device_busy_share"], prof["matched_share_of_device"],
-            summary["phase_s"]))
-    log_top_kernels("llama generate", prof["top_kernels"])
+            prof["kernels_per_step"], prof["device_busy_share"],
+            prof["matched_share_of_device"], summary["phase_s"]))
+    log_top_kernels(label + " generate", prof["top_kernels"])
     return launches, rows, summary
+
+
+# -- phase 9: Qwen3-30B-A3B (routed experts) training and generate ------------
+
+# The public Qwen/Qwen3-30B-A3B at full width and with all 128 experts,
+# its depth cut from 48 to 4 layers (AdamW's 16 bytes a parameter on
+# 3.11 G parameters is 49.8 GB of the card's 80), sequences cut to 2048.
+QWEN3_LAYERS = 4
+QWEN3_BATCH, QWEN3_EPOCHS, QWEN3_STEPS = 2, 12, 20
+# Capacity factor in training (the importer's checkpoints run drop-free)
+# and the Trainer's weight on the aux losses (its default).
+QWEN3_CAPACITY, QWEN3_AUX_WEIGHT = 2.0, 0.01
+# AdamW's peak learning rate (warmup-cosine, as phase 7): on the card, 240
+# steps at 1e-4 leave the cycle plateau and learn the chains, and at 3e-4
+# they end short of that (PERF.md, Findings).
+QWEN3_LR = 1e-4
+QWEN3_SEED = 6
+# A fit whose last epoch ends below this many nats has left the cycle
+# plateau (`llama_loss_gate`) and learned the chains, so its greedy
+# continuation is held to the chain rule.
+CHAIN_TAUGHT_LOSS = 0.5
+
+
+def qwen3_config(capacity_factor=QWEN3_CAPACITY):
+    from cloud_tpu_torch.models import QWEN3_30B_A3B
+
+    return dict(QWEN3_30B_A3B, num_layers=QWEN3_LAYERS, max_seq_len=LLAMA_SEQ,
+                moe_capacity_factor=capacity_factor)
+
+
+def seeded_on_card(model, seed):
+    """`LlamaLM.reset_parameters`'s distributions (weights normal with
+    std 0.02, norm scales 1, biases 0) drawn on the card from a seeded
+    CUDA generator: the CPU draw of 3.1 G values would take half a
+    minute."""
+    import torch
+
+    gen = torch.Generator(device=model.device).manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.ndim == 1:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+
+
+def active_params(model):
+    """Parameters a token's forward multiplies by: every Linear weight
+    (attention, the head), and in each MoE block the router and the
+    top_k of E experts' three matrices."""
+    total = matmul_params(model)
+    for block in model.blocks:
+        moe = block.moe
+        total += moe.router.numel() + moe.top_k * (
+            moe.expert_gate[0].numel() + moe.expert_up[0].numel()
+            + moe.expert_down[0].numel())
+    return total
+
+
+class MoeWatch:
+    """Forward hooks on a MoE LlamaLM in training: the sum of the aux
+    losses of each training forward (kept on the device), and at the
+    forwards numbered in `load_at` (1 = the first) each layer's expert
+    load: routes per expert before capacity and the share dropped."""
+
+    def __init__(self, model, load_at):
+        import torch
+        from cloud_tpu_torch.models import moe as tmoe
+
+        self.aux, self.load, self.calls = [], {}, 0
+        self.load_at = set(load_at)
+
+        def count(mod, args):
+            if mod.training:
+                self.calls += 1
+
+        def aux(mod, args, out):
+            if mod.training and mod.aux_losses:
+                self.aux.append(sum(a.detach() for a in mod.aux_losses))
+
+        def load(i):
+            def hook(mod, args):
+                if not (model.training and self.calls in self.load_at):
+                    return
+                with torch.no_grad():
+                    _, top_idx, _ = mod.route(args[0])
+                stats = tmoe.expert_load(top_idx, mod.num_experts,
+                                         mod.capacity(top_idx.shape[0]))
+                counts = stats["routes_per_expert"]
+                self.load.setdefault(self.calls, []).append(
+                    {"layer": i, "dropped_share": stats["dropped_share"],
+                     "max_per_expert": max(counts),
+                     "min_per_expert": min(counts)})
+            return hook
+
+        self.hooks = [model.register_forward_pre_hook(count),
+                      model.register_forward_hook(aux)]
+        self.hooks += [block.moe.register_forward_pre_hook(load(i))
+                       for i, block in enumerate(model.blocks)]
+
+    def remove(self):
+        for hook in self.hooks:
+            hook.remove()
+
+
+def norm_rows_at(device, rows, eps=1e-6):
+    """Both fused norm kernels at rows x LLAMA_D, bf16, each against its
+    plain version (`compare`, NORM_TOL) and timed beside its bound, the
+    plain version and F.rms_norm. Returns rows by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    rng = np.random.default_rng(22)
+    dt = torch.bfloat16
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            dtype=dt, device=device)
+
+    x, r = t(rows, LLAMA_D), t(rows, LLAMA_D)
+    scale = torch.tensor(1.0 + 0.1 * rng.standard_normal(LLAMA_D),
+                         dtype=torch.float32, device=device)
+    out = {}
+    for kernel, res in (("fused_norm", r), ("fused_norm_noresidual", None)):
+        normed, _ = tfn._launch(x, res, scale, eps, dt)
+        plain, _ = tfn.rmsnorm_residual_reference(x, scale, res, eps,
+                                                  out_dtype=torch.float32)
+        err = compare(normed, plain, *NORM_TOL["bf16"])
+        if not err["tol_ratio"] <= 1.0:
+            raise AssertionError("{} at rows {}: error {:.3e} of the bound"
+                                 .format(kernel, rows, err["tol_ratio"]))
+
+        def library(res=res):
+            h = x if res is None else x + res
+            return F.rms_norm(h, (LLAMA_D,), scale, eps), h
+
+        cost = tfn.fused_norm_cost((rows, LLAMA_D), dt,
+                                   with_residual=res is not None)
+        row = out[kernel] = {
+            "ms": timed_ms(lambda res=res: tfn._launch(x, res, scale, eps,
+                                                       dt)),
+            "plain_ms": timed_ms(lambda res=res:
+                                 tfn.rmsnorm_residual_reference(
+                                     x, scale, res, eps)),
+            "library_ms": timed_ms(library),
+            "max_abs_err": err["max_abs_err"], "rows": rows}
+        row["bound_ms"], row["bound_by"] = bound_of(cost)
+        log("kernel {} at rows {} (D {}, bf16): {:.4f} ms (bound {:.4f} ms "
+            "by {}), plain {:.4f} ms, library {:.4f} ms; max abs err {:.3e}"
+            .format(kernel, rows, LLAMA_D, row["ms"], row["bound_ms"],
+                    row["bound_by"], row["plain_ms"], row["library_ms"],
+                    row["max_abs_err"]))
+    return out
+
+
+def train_qwen3(device):
+    """Phase 9: Qwen3-30B-A3B at full width, 4 layers, through
+    `Trainer.fit` on phase 7's chain task (batch 2 x 2048, capacity factor
+    2.0, aux_loss_weight 0.01): the one-step check against attention and
+    norm by their plain versions (routes compared first), every step
+    launching each flash kernel and the norm with the residual once per
+    layer and the norm without it once per layer and once more, the loss
+    gate; step time, tokens/s, MFU on the active parameters, busy share,
+    top kernels, the aux loss per epoch and the expert load at the first
+    and last step. Returns (launches in fit, summary, the trained model
+    without optimizer state or gradients, its data)."""
+    import torch
+    from cloud_tpu_torch.models import LlamaLM
+    from cloud_tpu_torch.ops import attention as tatt
+
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    cfg = qwen3_config()
+    model = LlamaLM(compute_dtype=torch.bfloat16, device=device, seed=None,
+                    **cfg)
+    seeded_on_card(model, 0)
+    n_total = sum(p.numel() for p in model.parameters())
+    n_active = active_params(model)
+    log("qwen3moe: Qwen3-30B-A3B at {} layers ({:,} parameters, {:,} "
+        "active per token) built in {:.1f} s".format(
+            QWEN3_LAYERS, n_total, n_active, time.monotonic() - t0))
+    data = llama_data(QWEN3_SEED, model.vocab_size, QWEN3_BATCH,
+                      QWEN3_STEPS, n_val=GEN_BATCH)
+    x, y = data["x"], data["y"]
+    entropy, cycle, gate = data["entropy"], data["cycle"], data["gate"]
+    check = llama_one_step_check(model,
+                                 torch.as_tensor(x[:1], device=device),
+                                 torch.as_tensor(y[:1], device=device))
+    torch.cuda.empty_cache()
+
+    total = QWEN3_EPOCHS * QWEN3_STEPS
+    watch = MoeWatch(model, load_at=(1, total))
+    trainer, history, launches, fit_s = llama_fit(
+        model, x, y, batch=QWEN3_BATCH, epochs=QWEN3_EPOCHS,
+        peak_lr=QWEN3_LR)
+    watch.remove()
+    steps = trainer.state.step
+    aux = torch.stack(watch.aux).view(QWEN3_EPOCHS, -1).mean(1).tolist()
+    # The history's loss is the training loss, the aux term included (as
+    # in JAX); the gate reads the next-token loss alone.
+    losses = [l - QWEN3_AUX_WEIGHT * a
+              for l, a in zip(history["loss"], aux)]
+    data["last_loss"] = losses[-1]
+    log("qwen3moe fit: {} steps in {:.2f} s, history {}; aux loss per "
+        "epoch (sum over layers) {}; next-token loss per epoch {}; entropy "
+        "of the next token given the current one {:.4f} nats, cycle level "
+        "{:.4f}, gate {:.4f}; peak memory {:.1f} GB".format(
+            steps, fit_s, json.dumps(history), json.dumps(aux),
+            json.dumps(losses), entropy, cycle, gate,
+            torch.cuda.max_memory_allocated() / 1e9))
+    for step, rows in sorted(watch.load.items()):
+        log("qwen3moe expert load at step {}: {}".format(
+            step, json.dumps(rows)))
+    if not llama_gate_passes(losses, gate):
+        raise AssertionError(
+            "qwen3moe: the last epoch's next-token loss {} is not below "
+            "the gate {:.4f}".format(losses[-1], gate))
+
+    batches = [(x[i:i + QWEN3_BATCH], y[i:i + QWEN3_BATCH])
+               for i in range(0, len(x), QWEN3_BATCH)]
+    step_s, times = time_steps(trainer, batches)
+    prof = profile_steps(train_step(trainer, batches),
+                         ("flash_", "rmsnorm_kernel"))
+    cost = tatt.flash_attention_cost(QWEN3_BATCH, LLAMA_SEQ, model.num_heads,
+                                     model.num_kv_heads, model.head_dim,
+                                     causal=True)
+    tokens = QWEN3_BATCH * LLAMA_SEQ
+    step_flops = (6.0 * n_active * tokens
+                  + 3 * cost["forward"]["flops"] * model.num_layers)
+    mfu = step_flops / step_s / PEAK_FLOPS["bf16"]
+    summary = {
+        "model": "Qwen3-30B-A3B bf16, {} of 48 layers".format(QWEN3_LAYERS),
+        "parameters": n_total, "active_parameters": n_active,
+        "batch": QWEN3_BATCH, "seq": LLAMA_SEQ, "steps": steps,
+        "capacity_factor": QWEN3_CAPACITY,
+        "aux_loss_weight": QWEN3_AUX_WEIGHT,
+        "history": history, "aux_loss_per_epoch": aux,
+        "next_token_loss_per_epoch": losses,
+        "expert_load": watch.load, "peak_lr": QWEN3_LR,
+        "next_token_entropy_given_current": entropy, "cycle_level": cycle,
+        "loss_gate": gate, "fit_s": fit_s, "launches": launches,
+        "one_step_check": check, "step_p50_s": step_s,
+        "step_times_s": times, "tokens_per_s": tokens / step_s,
+        "step_flops": step_flops, "mfu_active": mfu,
+        "device_busy_share": prof["device_busy_share"],
+        "port_kernels_share_of_device": prof["matched_share_of_device"],
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "kernels_per_step": prof["kernels_per_step"],
+        "top_kernels": prof["top_kernels"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+    log("qwen3moe train: step p50 {:.2f} ms, {:.0f} tokens/s, MFU (active "
+        "parameters) {:.4f}, device busy {}, device {:.1f} ms/step in {:.0f} "
+        "kernels, the port's kernels {} of device time".format(
+            step_s * 1e3, tokens / step_s, mfu, prof["device_busy_share"],
+            prof["device_ms_per_step"], prof["kernels_per_step"],
+            prof["matched_share_of_device"]))
+    log_top_kernels("qwen3moe", prof["top_kernels"])
+    del trainer
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return launches, summary, model, data
+
+
+def generate_qwen3(model, data, device):
+    """Phase 9's generate: the trained model set drop-free (as the
+    importer makes a checkpoint) through `generate_llama`, with its copy
+    imported as `qwen3_moe`."""
+    cfg = qwen3_config(capacity_factor=None)
+    model.moe_capacity_factor = None
+    for block in model.blocks:
+        block.moe.capacity_factor = None
+    taught = data.get("last_loss", np.inf) < CHAIN_TAUGHT_LOSS
+    return generate_llama(model, data, device, cfg=cfg,
+                          model_type="qwen3_moe", label="qwen3moe",
+                          chain_taught=taught)
 
 
 def llama_gate_seeds(seeds, out_path):
@@ -2270,6 +2712,8 @@ def main():
     flash_rows_gemma = time_flash_kernels(device, GEMMA2_ATTENTION)
     flash_rows_phi3 = time_flash_kernels(device, PHI3_ATTENTION)
     flash_rows_phi2 = time_flash_kernels(device, PHI2_ATTENTION)
+    flash_rows_qwen3 = time_flash_kernels(device, QWEN3_ATTENTION)
+    flash_rows_deepseek = time_flash_kernels(device, DEEPSEEK_V4_ATTENTION)
     norm_rows, norm_details = check_norm_kernels(device)
     mlp_rows, mlp_details = check_mlp_kernels(device)
 
@@ -2289,6 +2733,12 @@ def main():
                                                         device)
     del llama
     torch.cuda.empty_cache()
+    qwen3_norm_rows = norm_rows_at(device, QWEN3_BATCH * LLAMA_SEQ)
+    qwen3_launches, qwen3_training, qwen3, qwen3_data = train_qwen3(device)
+    qwen3_gen_launches, _, qwen3_generation = generate_qwen3(
+        qwen3, qwen3_data, device)
+    del qwen3
+    torch.cuda.empty_cache()
 
     # One row per kernel and path that launches it: the launches counted
     # from 0 around that path's run, the times and errors at its shape.
@@ -2302,7 +2752,8 @@ def main():
          rows["paged_attention_int8"])]
     for path, times, launched in (
             ("gpt2_train", flash_rows, flash_launches),
-            ("tinyllama_train", flash_rows_llama, llama_launches)):
+            ("tinyllama_train", flash_rows_llama, llama_launches),
+            ("qwen3moe_train", flash_rows_qwen3, qwen3_launches)):
         for name, line in (("flash_attention_fwd", "179"),
                            ("flash_attention_dq", "345"),
                            ("flash_attention_dkdv", "383")):
@@ -2321,6 +2772,16 @@ def main():
                         llama_launches[name], table[name]))
         entries.append((name, source, replaces, "tinyllama_generate",
                         gen_launches[name], gen_rows[name]))
+    # The MoE path runs the norm kernels alone (its experts are plain
+    # products): training at rows 2 x 2048, generate at decode rows 8 x
+    # D 2048, the shape phase 8 timed.
+    for name in ("fused_norm", "fused_norm_noresidual"):
+        entries.append((name, "fused_norm.cu", "fused_norm.py:70",
+                        "qwen3moe_train", qwen3_launches[name],
+                        qwen3_norm_rows[name]))
+        entries.append((name, "fused_norm.cu", "fused_norm.py:70",
+                        "qwen3moe_generate", qwen3_gen_launches[name],
+                        gen_rows[name]))
     kernels = [{
         "name": name, "route": "cuda",
         "source": "cloud_tpu_torch/ops/csrc/" + source,
@@ -2347,9 +2808,14 @@ def main():
                    "flash_timing_gemma2": flash_rows_gemma,
                    "flash_timing_phi3": flash_rows_phi3,
                    "flash_timing_phi2": flash_rows_phi2,
+                   "flash_timing_qwen3moe": flash_rows_qwen3,
+                   "flash_timing_deepseek_v4_d512": flash_rows_deepseek,
                    "norm_checks": norm_details, "mlp_checks": mlp_details,
                    "training": training, "llama_training": llama_training,
                    "llama_generate": generation,
+                   "qwen3moe_training": qwen3_training,
+                   "qwen3moe_generate": qwen3_generation,
+                   "qwen3moe_norm_rows": qwen3_norm_rows,
                    "build_logs": _build.build_logs}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

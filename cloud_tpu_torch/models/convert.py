@@ -11,6 +11,8 @@
     block_i/attention/*/bias [H, hd]    -> ....bias [H*hd]
     block_i/attention/out/kernel [H, hd, d] -> ....out.weight [d, H*hd]
     block_i/mlp_in|mlp_out/kernel [in, out] -> ....weight [out, in]
+    block_i/moe/{router,expert_in,expert_out} -> blocks.i.moe.<same>
+                                           (the same layout)
     ln_final/{scale,bias}               -> ln_final.{weight,bias}
     lm_head/kernel [d, V] (no bias)     -> lm_head.weight [V, d]
 """
@@ -27,6 +29,10 @@ def _flatten(tree, prefix=()):
             yield from _flatten(value, prefix + (key,))
         else:
             yield prefix + (key,), np.array(value, np.float32)
+
+
+_SWITCH_LEAVES = ("router", "expert_in", "expert_out")
+_TOPK_LEAVES = ("router", "expert_gate", "expert_up", "expert_down")
 
 
 def params_from_flax(params):
@@ -46,7 +52,9 @@ def params_from_flax(params):
         match = re.fullmatch(r"block_(\d+)", path[0])
         module = (("blocks.%s." % match.group(1)) if match else "") \
             + ".".join(path[1 if match else 0:-1])
-        if leaf == "scale":
+        if path[-2] == "moe" and leaf in _SWITCH_LEAVES:
+            state[module + "." + leaf] = arr
+        elif leaf == "scale":
             state[module + ".weight"] = arr
         elif leaf == "bias":
             state[module + ".bias"] = arr.reshape(-1)
@@ -89,7 +97,9 @@ def params_to_flax(state_dict, num_heads):
             path = tuple(parts[:-1])
         leaf = parts[-1]
         module = path[-1]
-        if module.startswith("ln_"):
+        if module == "moe" and leaf in _SWITCH_LEAVES:
+            put(path + (leaf,), arr)
+        elif module.startswith("ln_"):
             put(path + ({"weight": "scale", "bias": "bias"}[leaf],), arr)
         elif module in ("query", "key", "value"):
             if leaf == "weight":
@@ -126,6 +136,9 @@ def _contiguous(tree):
 #   block_i/attention/{q_norm,k_norm}/scale   -> ....weight [hd]
 #   block_i/attention/out/kernel [H, hd, d]   -> ....out.weight [d, H*hd]
 #   block_i/mlp/{gate,up,down}/kernel [in, out] -> ....weight [out, in]
+#   block_i/moe/{router,expert_gate,expert_up,expert_down}
+#                                             -> blocks.i.moe.<same> (the
+#                                                same layout)
 #   norm_final/scale                          -> norm_final.weight
 #   lm_head/kernel [d, V]                     -> lm_head.weight [V, d]
 
@@ -148,6 +161,8 @@ def llama_params_from_flax(params):
         owner, leaf = path[-2] if len(path) > 1 else "", path[-1]
         if path == ("embed", "embedding"):
             state["embed.weight"] = arr
+        elif owner == "moe" and leaf in _TOPK_LEAVES:
+            state[module + "." + leaf] = arr
         elif owner in _LLAMA_NORMS and leaf == "scale":
             state[module + ".weight"] = arr
         elif owner in ("query", "key", "value") and leaf == "kernel":
@@ -193,7 +208,9 @@ def llama_params_to_flax(state_dict, num_heads, num_kv_heads=None):
             path = tuple(parts[:-1])
         leaf = parts[-1]
         module = path[-1] if path else ""
-        if module in _LLAMA_NORMS and leaf == "weight":
+        if module == "moe" and leaf in _TOPK_LEAVES:
+            put(path + (leaf,), arr)
+        elif module in _LLAMA_NORMS and leaf == "weight":
             put(path + ("scale",), arr)
         elif module in heads and leaf == "weight":
             put(path + ("kernel",),

@@ -12,8 +12,10 @@ Gemma3 q/k norms, Gemma 1/2/3 and Phi-3), and so is every rejection:
 LongRoPE and other rope schemes, `partial_rotary_factor`, the multimodal
 `gemma3` wrapper, bidirectional attention, unknown activations, the
 GPT-2 attention variants, and any tensor the mapping does not consume.
-The mixture-of-experts families (Mixtral, Qwen3-MoE) raise until
-`models/moe.py` is ported.
+The mixture-of-experts families (Mixtral, Qwen3-MoE) import drop-free
+(`moe_capacity_factor=None`, HF's inference semantics); Qwen3-MoE with
+dense layers interleaved (`mlp_only_layers`, `decoder_sparse_step` != 1)
+is rejected, as in JAX.
 
 HF stores `nn.Linear` weights [out, in], as the port does, so the Llama
 mapping is renames (Phi-3's fused `qkv_proj` and `gate_up_proj` split by
@@ -29,6 +31,11 @@ rows; Gemma's (1 + w) RMSNorm convention folded into the scale):
         (Gemma 2/3: blocks.i.norm_attn_post; pre/post_feedforward_layernorm
         -> blocks.i.norm_mlp / norm_mlp_post)
     model.layers.i.mlp.{gate,up,down}_proj  -> blocks.i.mlp.{gate,up,down}
+    Mixtral block_sparse_moe.gate / Qwen3-MoE mlp.gate [E, d]
+                                            -> blocks.i.moe.router [d, E]
+    ....experts.e.{w1,w3,w2} / {gate,up,down}_proj [out, in]
+                                            -> blocks.i.moe.expert_{gate,
+                                               up,down}[e] [in, out]
     model.norm.weight                       -> norm_final.weight
     lm_head.weight                          -> lm_head.weight (else the
                                                embedding, tied)
@@ -189,8 +196,8 @@ def import_hf_llama(model=None, state_dict=None, config=None,
 
     Returns:
         a `LlamaLM` configured as the checkpoint (rotate-half RoPE, its
-        theta) with its weights loaded. Mixtral and Qwen3-MoE raise
-        NotImplementedError (ROADMAP: Modules to port, item 1, MoE).
+        theta) with its weights loaded; Mixtral and Qwen3-MoE with their
+        routed experts, drop-free.
     """
     state_dict, config = _unpack(model, state_dict, config)
     cfg = _cfg_reader(config)
@@ -241,11 +248,6 @@ def import_hf_llama(model=None, state_dict=None, config=None,
             "model_type='gemma3' is the multimodal wrapper; import the "
             "text tower (model_type='gemma3_text', e.g. "
             "model.language_model with config.text_config).")
-    if model_type in ("mixtral", "qwen3_moe"):
-        raise NotImplementedError(
-            "model_type={!r} has a mixture-of-experts MLP, which the port "
-            "does not have yet (ROADMAP: Modules to port, item 1, "
-            "models/moe.py).".format(model_type))
     is_gemma2 = model_type == "gemma2"
     is_gemma3 = model_type == "gemma3_text"
     if is_gemma3 and cfg("use_bidirectional_attention", False):
@@ -294,7 +296,28 @@ def import_hf_llama(model=None, state_dict=None, config=None,
         attn_scale = float(cfg("query_pre_attn_scalar")) ** -0.5
     has_qk_norm = ("model.layers.0.self_attn.q_norm.weight"
                    in state_dict)
-    d_ff = cfg("intermediate_size")
+
+    # Mixtral / Qwen3-MoE: the routed MoE in every block, imported
+    # drop-free. Each family's HF config defaults stand in for a missing
+    # key (top-k 2 and 8; Qwen3MoeConfig's norm_topk_prob is False).
+    is_mixtral = model_type == "mixtral"
+    is_qwen3_moe = model_type == "qwen3_moe"
+    if is_qwen3_moe:
+        if cfg("mlp_only_layers", False) or \
+                int(cfg("decoder_sparse_step", 1) or 1) != 1:
+            raise NotImplementedError(
+                "qwen3_moe with dense layers interleaved "
+                "(mlp_only_layers / decoder_sparse_step != 1) is not "
+                "supported; LlamaLM's MoE applies to every block.")
+        moe_experts = int(cfg("num_experts"))
+        d_ff = int(cfg("moe_intermediate_size"))
+    else:
+        moe_experts = int(cfg("num_local_experts", 8)) if is_mixtral else 0
+        d_ff = cfg("intermediate_size")
+    moe_top_k = (int(cfg("num_experts_per_tok", 8 if is_qwen3_moe else 2))
+                 if moe_experts else 2)
+    moe_norm_topk = (bool(cfg("norm_topk_prob", False)) if is_qwen3_moe
+                     else True)
 
     take, consumed = _taker(state_dict)
     embed = take("model.embed_tokens.weight")
@@ -328,7 +351,16 @@ def import_hf_llama(model=None, state_dict=None, config=None,
             for name in ("q_norm", "k_norm"):
                 state[port + "attention." + name + ".weight"] = norm_scale(
                     take(hf + "self_attn." + name + ".weight"))
-        if fused_gate_up:
+        if moe_experts:
+            moe = hf + ("block_sparse_moe." if is_mixtral else "mlp.")
+            names = (("w1", "w3", "w2") if is_mixtral
+                     else ("gate_proj", "up_proj", "down_proj"))
+            state[port + "moe.router"] = take(moe + "gate.weight").T
+            for dst, src in zip(("gate", "up", "down"), names):
+                state[port + "moe.expert_" + dst] = torch.stack([
+                    take(moe + "experts.{}.{}.weight".format(e, src)).T
+                    for e in range(moe_experts)])
+        elif fused_gate_up:
             # Phi-3: rows cat(gate [f], up [f]).
             gu = take(hf + "mlp.gate_up_proj.weight")
             d_ff = gu.shape[0] // 2
@@ -338,7 +370,9 @@ def import_hf_llama(model=None, state_dict=None, config=None,
             for name in ("gate", "up"):
                 state[port + "mlp." + name + ".weight"] = \
                     take(hf + "mlp.{}_proj.weight".format(name))
-        state[port + "mlp.down.weight"] = take(hf + "mlp.down_proj.weight")
+        if not moe_experts:
+            state[port + "mlp.down.weight"] = take(
+                hf + "mlp.down_proj.weight")
         norms = {"norm_attn": "input_layernorm"}
         if is_gemma2 or is_gemma3:
             # Sandwich norms: here post_attention_layernorm normalizes the
@@ -389,6 +423,8 @@ def import_hf_llama(model=None, state_dict=None, config=None,
                           if is_gemma3 else None),
         # Gemma3 alone runs its local layers on an unscaled rotary.
         rope_scaling_local=(None if is_gemma3 else rope_scaling),
+        moe_experts=moe_experts, moe_top_k=moe_top_k,
+        moe_capacity_factor=None, moe_norm_topk=moe_norm_topk,
         device=device, seed=None)
     lm.load_state_dict(state)
     return lm

@@ -16,8 +16,15 @@ f32 (and soft-capped with `final_logit_softcap`). Each block:
 - `norm_mlp`: the fused RMSNorm with the residual add (h = x + y);
   with `dropout_rate > 0` the add and a plain RMSNorm instead, since the
   dropout sits between them;
-- the SwiGLU MLP through `ops.fused_mlp` (the CUDA kernels on the card);
+- the SwiGLU MLP through `ops.fused_mlp` (the CUDA kernels on the card),
+  or, with `moe_experts > 0`, the Mixtral / Qwen3-MoE top-k MoE
+  (`models.moe.TopKMoEMLP`) in its place;
 - optional Gemma2/3 sandwich norms (`post_block_norms`, plain).
+
+A training forward (no cache, the model in training mode) leaves each
+MoE block's aux loss in `aux_losses`, which the Trainer adds to the
+loss times its `aux_loss_weight`, as JAX's sown "losses" collection;
+an eval or decode forward leaves it empty.
 
 Dropout draws from the caller's `torch.Generator` (the Trainer's, seeded
 from its seed and the step) when the forward is called with
@@ -32,9 +39,8 @@ in plain PyTorch with f32 logits and softmax (the JAX decode attention
 is jnp, not a Pallas kernel). The norms and the MLP run the same fused
 kernels as training, at rows = batch x tokens of the call.
 
-Not ported (ROADMAP "Modules to port"): the mixture-of-experts MLP
-(`moe_experts > 0`) and the sequence-parallel attention impls ("ring",
-"ulysses"); both raise NotImplementedError.
+Not ported (ROADMAP "Modules to port"): the sequence-parallel attention
+impls ("ring", "ulysses"), which raise NotImplementedError.
 """
 
 import math
@@ -46,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cloud_tpu_torch.models import decoding
+from cloud_tpu_torch.models.moe import TopKMoEMLP
 from cloud_tpu_torch.models.transformer import _ComputeWeights, _dropout
 from cloud_tpu_torch.ops import attention as attention_ops
 from cloud_tpu_torch.ops import fused_mlp as mlp_ops
@@ -62,6 +69,20 @@ TINYLLAMA_1_1B = dict(vocab_size=32000, num_layers=22, num_heads=32,
                       max_seq_len=2048, rope_theta=10000.0,
                       rope_style="rotate_half", norm_eps=1e-5,
                       mlp_activation="silu")
+
+#: Qwen3-30B-A3B (`Qwen/Qwen3-30B-A3B`, config.json): 48 layers, d 2048,
+#: 32 heads over 4 KV heads at head_dim 128 with q/k norms, vocab 151936,
+#: rms_norm_eps 1e-6, rope_theta 1e6, 40960 positions, untied head, silu;
+#: every block's MLP an MoE of 128 experts of width 768
+#: (moe_intermediate_size), 8 per token, norm_topk_prob true. Rotate-half
+#: RoPE, the pairing of HF-layout weights. The capacity factor is the
+#: training default (2.0); the importer makes a checkpoint drop-free.
+QWEN3_30B_A3B = dict(vocab_size=151936, num_layers=48, num_heads=32,
+                     num_kv_heads=4, head_dim=128, d_model=2048, d_ff=768,
+                     max_seq_len=40960, rope_theta=1000000.0,
+                     rope_style="rotate_half", norm_eps=1e-6,
+                     mlp_activation="silu", qk_norm=True, moe_experts=128,
+                     moe_top_k=8, moe_norm_topk=True)
 
 _SEQUENCE_PARALLEL = ("ring", "ulysses")
 
@@ -375,7 +396,8 @@ class SwiGLU(nn.Module):
 
 class LlamaBlock(nn.Module):
     """Pre-norm block: x + attn(norm(x)), then the fused residual-add +
-    norm, the MLP and the second residual add (see the module doc)."""
+    norm, the MLP (or the MoE, `moe_experts > 0`) and the second
+    residual add (see the module doc)."""
 
     def __init__(self, d_model, num_heads, num_kv_heads, d_ff, cast,
                  attention_impl="auto", rope_theta=10000.0,
@@ -383,7 +405,8 @@ class LlamaBlock(nn.Module):
                  head_dim=None, rope_scaling=None, sliding_window=None,
                  qkv_bias=False, mlp_activation="silu", post_norms=False,
                  attn_scale=None, logit_softcap=None, qk_norm=False,
-                 device=None):
+                 moe_experts=0, moe_top_k=2, moe_capacity_factor=2.0,
+                 moe_norm_topk=True, device=None):
         super().__init__()
         self.dropout_rate = float(dropout_rate)
         self.post_norms = post_norms
@@ -403,18 +426,27 @@ class LlamaBlock(nn.Module):
             logit_softcap=logit_softcap, qk_norm=qk_norm, norm_eps=norm_eps,
             device=device)
         self.norm_mlp = norm()
-        self.mlp = SwiGLU(d_model, d_ff, cast, activation=mlp_activation,
-                          impl=impl, device=device)
+        if moe_experts:
+            self.moe = TopKMoEMLP(
+                d_model, num_experts=moe_experts, top_k=moe_top_k,
+                d_ff=d_ff, capacity_factor=moe_capacity_factor,
+                compute_dtype=cast.dtype, activation=mlp_activation,
+                norm_topk=moe_norm_topk, cast=cast, device=device)
+        else:
+            self.mlp = SwiGLU(d_model, d_ff, cast, activation=mlp_activation,
+                              impl=impl, device=device)
         if post_norms:
             self.norm_attn_post = norm()
             self.norm_mlp_post = norm()
 
-    def forward(self, x, mask=None, generator=None, cache=None):
+    def forward(self, x, mask=None, generator=None, cache=None,
+                losses=None):
         """generator: a `torch.Generator` on x's device when dropout is
         on for this call (None = deterministic). cache: this layer's
         decode cache (None = training forward); decode runs without
         dropout and so on the fused tail, as the JAX decoder (cloned
-        with dropout_rate 0) does."""
+        with dropout_rate 0) does. losses: a list the MoE's aux loss is
+        appended to (None: not collected)."""
         y = self.attention(self.norm_attn(x), mask, cache)
         if self.post_norms:
             y = self.norm_attn_post.plain(y)
@@ -427,7 +459,12 @@ class LlamaBlock(nn.Module):
             y = self.norm_mlp.plain(x)
         else:
             y, x = self.norm_mlp(y, residual=x)
-        y = self.mlp(y)
+        if hasattr(self, "moe"):
+            y, aux_loss = self.moe(y)
+            if losses is not None:
+                losses.append(aux_loss)
+        else:
+            y = self.mlp(y)
         if self.post_norms:
             y = self.norm_mlp_post.plain(y)
         if self.dropout_rate and generator is not None:
@@ -444,7 +481,10 @@ class LlamaLM(nn.Module):
     1). Load real ones with `load_state_dict` (see
     `llama_params_from_flax`, `import_hf_llama`). `decode` is kept for
     the JAX signature: the port decodes whenever `forward` is given a
-    cache (`init_cache`), and `generate()` drives that.
+    cache (`init_cache`), and `generate()` drives that. With
+    `moe_experts > 0` every block's MLP is a `TopKMoEMLP` (E experts of
+    width d_ff, top `moe_top_k`); `aux_losses` holds each block's aux
+    loss from the last training forward (module doc).
     """
 
     def __init__(self, vocab_size=32000, num_layers=4, num_heads=8,
@@ -461,10 +501,6 @@ class LlamaLM(nn.Module):
                  moe_capacity_factor=2.0, moe_norm_topk=True, device=None,
                  seed=0):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "the mixture-of-experts MLP (moe_experts > 0) is not ported "
-                "yet (ROADMAP: Modules to port, item 1, models/moe.py).")
         device = runtime.resolve_device(device)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -494,6 +530,12 @@ class LlamaLM(nn.Module):
         self.attn_kinds = attn_kinds
         self.rope_theta_local = rope_theta_local
         self.rope_scaling_local = rope_scaling_local
+        self.moe_experts = moe_experts
+        self.moe_top_k = moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_norm_topk = moe_norm_topk
+        #: Each MoE block's aux loss from the last training forward.
+        self.aux_losses = []
         self._cast = _ComputeWeights(compute_dtype)
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         blocks = []
@@ -508,7 +550,9 @@ class LlamaLM(nn.Module):
                 qkv_bias=qkv_bias, mlp_activation=mlp_activation,
                 post_norms=post_block_norms, attn_scale=attn_scale,
                 logit_softcap=attn_logit_softcap, qk_norm=qk_norm,
-                device=device))
+                moe_experts=moe_experts, moe_top_k=moe_top_k,
+                moe_capacity_factor=moe_capacity_factor,
+                moe_norm_topk=moe_norm_topk, device=device))
         self.blocks = nn.ModuleList(blocks)
         self.norm_final = FusedRMSNorm(d_model, norm_eps, compute_dtype,
                                        _sub_impl(attention_impl),
@@ -569,7 +613,8 @@ class LlamaLM(nn.Module):
         Without `cache`: the training/scoring forward at positions
         0..S-1; mask (optional [B, S] bool) marks the keys attention may
         see; `deterministic=False` with `generator` (a `torch.Generator`
-        on the model's device) applies dropout.
+        on the model's device) applies dropout. In training mode it
+        leaves the MoE blocks' aux losses in `aux_losses`.
 
         With `cache` (`init_cache`): decode, appending to the cache,
         without gradients. mask marks REAL incoming tokens: positions
@@ -581,6 +626,7 @@ class LlamaLM(nn.Module):
             raise ValueError(
                 "Sequence length {} exceeds max_seq_len {}.".format(
                     seq, self.max_seq_len))
+        self.aux_losses = []
         if cache is not None:
             with torch.no_grad():
                 x = self._embed(tokens)
@@ -588,9 +634,11 @@ class LlamaLM(nn.Module):
                     x = block(x, mask, cache=layer_cache)
                 return self._head(x)
         gen = None if deterministic else generator
+        losses = [] if self.training and self.moe_experts else None
         x = self._embed(tokens)
         for block in self.blocks:
-            x = block(x, mask, generator=gen)
+            x = block(x, mask, generator=gen, losses=losses)
+        self.aux_losses = losses or []
         return self._head(x)
 
     def _embed(self, tokens):
@@ -615,5 +663,5 @@ class LlamaLM(nn.Module):
 
 
 __all__ = ["FusedRMSNorm", "GQAttention", "LlamaBlock", "LlamaLM",
-           "RopeScaling", "SwiGLU", "TINYLLAMA_1_1B", "apply_rope",
-           "yarn_attention_factor"]
+           "QWEN3_30B_A3B", "RopeScaling", "SwiGLU", "TINYLLAMA_1_1B",
+           "apply_rope", "yarn_attention_factor"]

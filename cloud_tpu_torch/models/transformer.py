@@ -24,9 +24,18 @@ cache in place (no gradients):
   page tables, attended by `ops.paged_attention` (the CUDA kernel on
   the card), with optional int8 pages (`page_dtype="int8"`).
 
-Not ported (ROADMAP "Modules to port"): the mixture-of-experts MLP
-(`moe_experts > 0`) and bidirectional blocks (`causal=False`, the
-`TransformerEncoder`); both raise NotImplementedError.
+With `moe_experts > 0` each block's MLP is the Switch top-1 MoE
+(`models.moe.MoEMLP`, capacity factor 1.25, as the JAX block builds
+it); a training forward in training mode leaves each block's aux loss in
+`aux_losses` for the Trainer (JAX's sown "losses"). `generate()` and the
+serving engine refuse such a model: their decode route (right-padded
+prefill, paged decode, rows padded to 8) routes other rows than JAX's,
+so under a binding capacity it would give other tokens (ROADMAP: Modules
+to port, item 5).
+
+Not ported (ROADMAP "Modules to port"): bidirectional blocks
+(`causal=False`, the `TransformerEncoder`), which raise
+NotImplementedError.
 """
 
 import math
@@ -37,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cloud_tpu_torch.models import decoding
+from cloud_tpu_torch.models.moe import MoEMLP
 from cloud_tpu_torch.ops import attention as attention_ops
 from cloud_tpu_torch.parallel import runtime
 
@@ -212,13 +222,23 @@ def _quantized_page_write(pages, scales, x, phys, off):
     return pages, scales
 
 
+#: Why an MoE TransformerLM is not served (generate(), DecodeEngine).
+MOE_DECODE_NOT_PORTED = (
+    "generate() and serving of a TransformerLM with moe_experts > 0 are "
+    "not ported (ROADMAP: Modules to port, item 5, serving): the port's "
+    "TransformerLM decode route (right-padded prefill, paged decode, rows "
+    "padded to 8) would route other rows than JAX's under a binding "
+    "capacity, and so give other tokens.")
+
+
 class TransformerBlock(nn.Module):
     """Pre-LN block: x + drop(attn(ln(x))), then x + drop(mlp(ln(x)))
-    with tanh-approximate GELU; dropout only when `dropout_rate` > 0 and
-    the forward is not deterministic."""
+    with tanh-approximate GELU (or the Switch MoE, `moe_experts > 0`);
+    dropout only when `dropout_rate` > 0 and the forward is not
+    deterministic."""
 
     def __init__(self, d_model, num_heads, d_ff, norm_eps, cast,
-                 dropout_rate=0.0, causal=True, device=None):
+                 dropout_rate=0.0, causal=True, moe_experts=0, device=None):
         super().__init__()
         if not causal:
             raise NotImplementedError(
@@ -230,20 +250,32 @@ class TransformerBlock(nn.Module):
         self.attention = CausalSelfAttention(d_model, num_heads, cast,
                                              device=device)
         self.ln_mlp = nn.LayerNorm(d_model, eps=norm_eps, device=device)
-        self.mlp_in = nn.Linear(d_model, d_ff, device=device)
-        self.mlp_out = nn.Linear(d_ff, d_model, device=device)
+        if moe_experts:
+            self.moe = MoEMLP(d_model, num_experts=moe_experts, d_ff=d_ff,
+                              compute_dtype=cast.dtype, cast=cast,
+                              device=device)
+        else:
+            self.mlp_in = nn.Linear(d_model, d_ff, device=device)
+            self.mlp_out = nn.Linear(d_ff, d_model, device=device)
 
-    def forward(self, x, mask, cache, generator=None):
+    def forward(self, x, mask, cache, generator=None, losses=None):
         """generator: a `torch.Generator` on x's device when dropout is
-        on for this call (None = deterministic)."""
+        on for this call (None = deterministic). losses: a list the
+        MoE's aux loss is appended to (None: not collected)."""
         cast = self._cast
         drop = self.dropout_rate > 0 and generator is not None
         y = self.attention(_layer_norm(cast, self.ln_attn, x), mask, cache)
         if drop:
             y = _dropout(y, self.dropout_rate, generator)
         x = x + y
-        y = _linear(cast, self.mlp_in, _layer_norm(cast, self.ln_mlp, x))
-        y = _linear(cast, self.mlp_out, F.gelu(y, approximate="tanh"))
+        y = _layer_norm(cast, self.ln_mlp, x)
+        if hasattr(self, "moe"):
+            y, aux_loss = self.moe(y)
+            if losses is not None:
+                losses.append(aux_loss)
+        else:
+            y = _linear(cast, self.mlp_in, y)
+            y = _linear(cast, self.mlp_out, F.gelu(y, approximate="tanh"))
         if drop:
             y = _dropout(y, self.dropout_rate, generator)
         return x + y
@@ -256,7 +288,8 @@ class TransformerLM(nn.Module):
     scales 1) on `device` (default: the CUDA card; raises without one);
     load real ones with `load_state_dict` (see `params_from_flax`).
     `dropout_rate` applies after attention and after the MLP when the
-    forward is called with `deterministic=False`.
+    forward is called with `deterministic=False`. `moe_experts > 0`
+    makes each MLP a Switch MoE (module doc).
     """
 
     def __init__(self, vocab_size=32000, num_layers=4, num_heads=8,
@@ -264,10 +297,6 @@ class TransformerLM(nn.Module):
                  compute_dtype=torch.bfloat16, moe_experts=0, norm_eps=1e-6,
                  device=None, seed=0):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "the mixture-of-experts MLP (moe_experts > 0) is not "
-                "ported yet (ROADMAP: Modules to port, item 1).")
         device = runtime.resolve_device(device)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -278,13 +307,16 @@ class TransformerLM(nn.Module):
         self.dropout_rate = float(dropout_rate)
         self.compute_dtype = compute_dtype
         self.norm_eps = norm_eps
+        self.moe_experts = moe_experts
+        #: Each MoE block's aux loss from the last training forward.
+        self.aux_losses = []
         self._cast = _ComputeWeights(compute_dtype)
         self.embed = nn.Embedding(vocab_size, d_model, device=device)
         self.pos_embed = nn.Embedding(max_seq_len, d_model, device=device)
         self.blocks = nn.ModuleList(
             TransformerBlock(d_model, num_heads, d_ff, norm_eps,
                              self._cast, dropout_rate=dropout_rate,
-                             device=device)
+                             moe_experts=moe_experts, device=device)
             for _ in range(num_layers))
         self.ln_final = nn.LayerNorm(d_model, eps=norm_eps, device=device)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False,
@@ -366,7 +398,8 @@ class TransformerLM(nn.Module):
         Without `cache`: the training/scoring forward at positions
         0..S-1; mask (optional [B, S] bool) marks the keys attention may
         see; `deterministic=False` with `generator` (a `torch.Generator`
-        on the model's device) applies dropout.
+        on the model's device) applies dropout. In training mode it
+        leaves the MoE blocks' aux losses in `aux_losses`.
 
         With `cache`: decode, appending to the cache, without gradients.
         mask marks REAL incoming tokens: positions count only real
@@ -378,13 +411,16 @@ class TransformerLM(nn.Module):
             raise ValueError(
                 "Sequence length {} exceeds max_seq_len {}.".format(
                     seq, self.max_seq_len))
+        self.aux_losses = []
         if cache is not None:
             with torch.no_grad():
                 return self._decode(tokens, mask, cache)
         gen = None if deterministic else generator
+        losses = [] if self.training and self.moe_experts else None
         x = self.embed.weight[tokens] + self.pos_embed.weight[:seq]
         for block in self.blocks:
-            x = block(x, mask, None, generator=gen)
+            x = block(x, mask, None, generator=gen, losses=losses)
+        self.aux_losses = losses or []
         return self._head(x)
 
     def _decode(self, tokens, mask, cache):
@@ -493,6 +529,8 @@ def generate(model, prompt, max_new_tokens, seed=None, temperature=1.0,
                                   max_new_tokens)
     sampling = {"temperature": float(temperature), "top_k": top_k,
                 "top_p": top_p}
+    if isinstance(model, TransformerLM) and model.moe_experts:
+        raise NotImplementedError(MOE_DECODE_NOT_PORTED)
     if not isinstance(model, TransformerLM):
         tokens = _generate_dense(model, prompt, real, max_new_tokens, seeds,
                                  sampling, eos_token, bucket_prompts)
@@ -596,5 +634,6 @@ def _generate_paged(model, prompt, real, max_new_tokens, seeds, sampling,
     return runtime.device_fetch(torch.stack(out, dim=1)[:batch])
 
 
-__all__ = ["CausalSelfAttention", "DECODE_ROW_ALIGN", "TransformerBlock",
-           "TransformerLM", "generate"]
+__all__ = ["CausalSelfAttention", "DECODE_ROW_ALIGN",
+           "MOE_DECODE_NOT_PORTED", "TransformerBlock", "TransformerLM",
+           "generate"]

@@ -20,15 +20,18 @@ Gemma2-style `logit_softcap` (cap * tanh(s / cap) after the scale,
 before masking). A query row with no allowed key comes out as zeros and
 passes no gradient, in both versions.
 
-The kernels take bf16 or f32 q/k/v (all one type) with any head_dim up
-to 256, accumulate in f32 and return the input type; anything else
-raises. A head_dim that is a multiple of 8 runs at the next template
-width (64, 128 or 256) on zero-filled columns past D; any other head_dim
-goes to the kernels as a copy zero-padded to the next multiple of 8
-(`_layout.pad_last`: TMA takes rows 16 bytes apart), whose output is
-sliced back to D. The default sm_scale is 1/sqrt(D) of the true D. An
-operand (q, k, v or the backward's dO) that is not contiguous or not
-16-byte aligned goes to the kernels as a contiguous copy.
+The kernels take bf16 or f32 q/k/v (all one type) at any head_dim,
+accumulate in f32 and return the input type; anything else raises. A
+head_dim up to 256 that is a multiple of 8 runs at the next template
+width (64, 128 or 256) on zero-filled columns past D; a head_dim above
+256 runs the wide kernels (`csrc/flash_attention_wide.cu`: the outputs
+in column chunks, the scores recomputed by each chunk's block);
+`kernel_library` picks the route. Any head_dim that is not a multiple of
+8 goes to the kernels as a copy zero-padded to the next multiple of 8
+(`_layout.pad_last`: rows 16 bytes apart), whose output is sliced back
+to D. The default sm_scale is 1/sqrt(D) of the true D. An operand (q, k,
+v or the backward's dO) that is not contiguous or not 16-byte aligned
+goes to the kernels as a contiguous copy.
 """
 
 import ctypes
@@ -46,8 +49,11 @@ launches = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
             "flash_attention_dkdv": 0}
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
-#: The widest head_dim the kernels take (their widest template).
-MAX_HEAD_DIM = 256
+#: The widest head_dim of the template kernels; wider ones run the wide
+#: kernels.
+MAX_TEMPLATE_HEAD_DIM = 256
+#: The widest head_dim the C interface carries (a 16-bit field).
+MAX_HEAD_DIM = 32767
 
 
 def reset_launches():
@@ -173,14 +179,24 @@ def mha_backward_reference(q, k, v, dout, delta, causal=True,
 # ---------------------------------------------------------------------------
 
 
-def _library(dtype):
-    """The kernels' library for q/k/v of `dtype`: bf16 in
-    `flash_attention`, f32 in `flash_attention_f32` (two sources, so that
-    they build in parallel); both export the same three functions."""
+def kernel_library(dtype, head_dim):
+    """The CUDA source whose kernels a call at this dtype and (padded)
+    head_dim launches: `flash_attention_wide` above
+    MAX_TEMPLATE_HEAD_DIM (both types), else `flash_attention` (bf16) or
+    `flash_attention_f32`. Pure Python: it builds nothing."""
+    if head_dim > MAX_TEMPLATE_HEAD_DIM:
+        return "flash_attention_wide"
+    return ("flash_attention" if dtype == torch.bfloat16
+            else "flash_attention_f32")
+
+
+def _library(dtype, head_dim):
+    """The kernels' library for q/k/v of `dtype` at `head_dim`
+    (`kernel_library`; three sources, so that they build in parallel);
+    each exports the same three functions."""
     from cloud_tpu_torch.ops import _build
 
-    lib = _build.load("flash_attention" if dtype == torch.bfloat16
-                      else "flash_attention_f32")
+    lib = _build.load(kernel_library(dtype, head_dim))
     ints = [ctypes.c_int] * 7        # batch seq heads kv_heads D causal win
     tail = [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     specs = {
@@ -239,7 +255,7 @@ def _launch_forward(q, k, v, mask, config):
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32,
                       device=q.device)
-    fn = _library(q.dtype).flash_attention_forward
+    fn = _library(q.dtype, q.shape[-1]).flash_attention_forward
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -254,7 +270,7 @@ def _launch_dq(q, k, v, mask, dout, lse, delta, config):
     from cloud_tpu_torch.ops import _build
 
     dq = torch.empty_like(q)
-    fn = _library(q.dtype).flash_attention_backward_dq
+    fn = _library(q.dtype, q.shape[-1]).flash_attention_backward_dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -271,7 +287,7 @@ def _launch_dkdv(q, k, v, mask, dout, lse, delta, config):
 
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _library(q.dtype).flash_attention_backward_dkdv
+    fn = _library(q.dtype, q.shape[-1]).flash_attention_backward_dkdv
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KINDS[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -412,5 +428,6 @@ def flash_attention_cost(batch, seq, heads, kv_heads, head_dim, causal=True,
 
 
 __all__ = ["allowed_pairs", "attention", "flash_attention",
-           "flash_attention_cost", "launches", "mha_backward_reference",
-           "mha_reference", "repeat_kv", "reset_launches"]
+           "flash_attention_cost", "kernel_library", "launches",
+           "mha_backward_reference", "mha_reference", "repeat_kv",
+           "reset_launches"]

@@ -18,6 +18,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockM = 64;  // q rows per block (forward, dq): 16 per warp
 constexpr int kBlockN = 64;  // keys per tile (forward, dq) / per block (dkdv)
+constexpr int kMaxHeadDim = 32767;  // the widest D Params.dim holds
 
 struct Params {
   const void* q;
@@ -35,7 +36,7 @@ struct Params {
   int batch, seq, heads, kv_heads;
   int window;
   int16_t causal;
-  int16_t dim;  // head_dim D (<= 256): the row length of each [., ., H, D]
+  int16_t dim;  // head_dim D: the row length of each [., ., H, D]
   float sm_scale, softcap;
 };
 // Every kernel takes Params by value. At 136 bytes (one more int) all
@@ -428,9 +429,11 @@ Params make_params(const void* q, const void* k, const void* v,
   p.seq = seq;
   p.heads = heads;
   p.kv_heads = kv_heads;
-  // Out of range (template_width refuses -1) before it is narrowed.
-  p.dim = static_cast<int16_t>(head_dim > 0 && head_dim <= 256 ? head_dim
-                                                                : -1);
+  // Out of range (every dispatch refuses -1) before it is narrowed; D up
+  // to 256 runs the narrow kernels, above it flash_attention_wide.cu's.
+  p.dim = static_cast<int16_t>(head_dim > 0 && head_dim <= kMaxHeadDim
+                                   ? head_dim
+                                   : -1);
   p.causal = static_cast<int16_t>(causal != 0);
   p.window = window;
   p.sm_scale = sm_scale;
@@ -445,8 +448,8 @@ cudaError_t dispatch(int which, int kind, const Params& p, void* stream);
 }  // namespace
 
 
-// kind: 0 = f32, 1 = bf16; head_dim a multiple of 8 up to 256 (run at the
-// template width of template_width). mask may be null. Each function
+// kind: 0 = f32, 1 = bf16; head_dim a multiple of 8 (up to 256 run at the
+// template width of template_width, above it by flash_attention_wide.cu). mask may be null. Each function
 // returns the launch's cudaError_t (0 = ok); an unknown kind or head_dim,
 // or heads not a multiple of kv_heads, gives cudaErrorInvalidValue.
 extern "C" int flash_attention_forward(

@@ -58,12 +58,15 @@ class DecodeEngine:
     def __init__(self, model, slots, page_size, num_pages,
                  max_new_cap=None, draft_model=None, draft_params=None,
                  spec_k=0, page_dtype="", ladder=None):
-        from cloud_tpu_torch.models.transformer import TransformerLM
+        from cloud_tpu_torch.models.transformer import (
+            MOE_DECODE_NOT_PORTED, TransformerLM)
 
         if not isinstance(model, TransformerLM):
             raise NotImplementedError(
                 "the engine serves TransformerLM; got {}.".format(
                     type(model).__name__))
+        if model.moe_experts:
+            raise NotImplementedError(MOE_DECODE_NOT_PORTED)
         for name, value in (("draft_model", draft_model),
                             ("draft_params", draft_params),
                             ("spec_k", spec_k or None)):

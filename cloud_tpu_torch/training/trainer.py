@@ -4,7 +4,10 @@
 The Trainer runs where the model's parameters live (the port's models
 default to the CUDA card; build one with `device="cpu"` to train on the
 CPU). Each step is the JAX step's body in eager PyTorch: forward, the
-loss mean (weighted Keras semantics under `sample_weight`), backward,
+loss mean (weighted Keras semantics under `sample_weight`) plus
+`aux_loss_weight` times the aux losses the forward left in the model's
+`aux_losses` (the MoE load-balancing losses, JAX's sown "losses"),
+backward,
 one optimizer update (every k-th step under gradient accumulation, as
 `optax.MultiSteps`), and the step's metrics, which stay on the device.
 Each epoch's metrics are reduced on the device and fetched once through
@@ -242,7 +245,8 @@ class Trainer:
                  loss="sparse_categorical_crossentropy",
                  metrics=("accuracy",), mesh=None,
                  param_sharding_rules=None, train_kwargs=None,
-                 eval_kwargs=None, seed=0, gradient_accumulation_steps=1,
+                 eval_kwargs=None, seed=0, aux_loss_weight=0.01,
+                 gradient_accumulation_steps=1,
                  remat=False, zero1=False, fsdp=False, ema_decay=None,
                  steps_per_execution=1, trainable=None):
         """Constructor.
@@ -263,6 +267,10 @@ class Trainer:
             train_kwargs / eval_kwargs: extra forward kwargs for training
                 (e.g. {"deterministic": False}) / evaluation.
             seed: the shuffle seed and the dropout generator's seed.
+            aux_loss_weight: weight of the aux losses a training forward
+                leaves in the model's `aux_losses` (the MoE blocks' load
+                balancing), added to the training loss and to the loss
+                the history reports; `evaluate` adds none.
             gradient_accumulation_steps: apply the averaged gradient of
                 every N steps (optax.MultiSteps semantics).
         """
@@ -300,6 +308,7 @@ class Trainer:
         self.train_kwargs = dict(train_kwargs or {})
         self.eval_kwargs = dict(eval_kwargs or {})
         self.seed = seed
+        self.aux_loss_weight = aux_loss_weight
         self.state = None
         self.optimizer = None
         self._updates = 0
@@ -416,6 +425,10 @@ class Trainer:
             # normalized by sum(w).
             per_example = _per_example_view(per_example, w.shape[0]) * w
         loss = per_example.mean()
+        sown = getattr(self.model, "aux_losses", None)
+        if sown:
+            loss = loss + self.aux_loss_weight * sum(
+                aux.to(loss.dtype) for aux in sown)
         k = self.gradient_accumulation_steps
         (loss / k if k > 1 else loss).backward()
         self.state.step += 1

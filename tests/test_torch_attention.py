@@ -7,8 +7,9 @@ interpret mode and `jax.vjp`, for every variant of the contract.
 Tolerance: 1e-5 (f32 on both sides; the Pallas kernels sum blockwise
 with an online softmax, the plain version in one pass), at head_dim 16
 and, for the Gemma 2 shape of the contract (GQA, softcap, key mask),
-head_dim 256; and at head_dims 96 and 36, which are no kernel template
-width. bf16 inputs: see `test_bf16_reference_matches_jax_kernel`.
+head_dim 256; at head_dims 96 and 36, which are no kernel template
+width; and at 264 and 512, which the CUDA wrapper gives the wide
+kernels. bf16 inputs: see `test_bf16_reference_matches_jax_kernel`.
 """
 
 import sys
@@ -50,6 +51,13 @@ VARIANTS = {
     # default sm_scale is 1/sqrt(D) of the true D on both sides.
     "d96_window_gqa": dict(causal=True, window=12, kv_heads=2, head_dim=96),
     "d36_mask": dict(causal=True, mask=True, head_dim=36),
+    # head_dims past the widest template, which the CUDA wrapper sends to
+    # the wide kernels: DeepSeek-V4-Flash's 512 over one KV head, with
+    # window, softcap and key mask, and 264.
+    "d512_window_softcap_mask_kv1": dict(causal=True, window=12,
+                                         logit_softcap=2.0, kv_heads=1,
+                                         mask=True, head_dim=512),
+    "d264": dict(causal=True, head_dim=264),
 }
 
 
@@ -238,6 +246,26 @@ def test_repeat_kv_matches_jax():
     np.testing.assert_array_equal(
         tatt.repeat_kv(torch.from_numpy(k), 6).numpy(),
         np.asarray(jatt.repeat_kv(jnp.asarray(k), 6)))
+
+
+def test_wide_head_dims_take_the_wide_route():
+    """The route a CUDA call takes, chosen in Python: up to 256 the
+    template kernels by type, above it the wide kernels in both types
+    (257 after its zero-padding to 264); none of those head_dims is
+    refused, only one past the C interface's field."""
+    for dtype, lib in ((torch.bfloat16, "flash_attention"),
+                       (torch.float32, "flash_attention_f32")):
+        for head_dim in (8, 64, 200, 256):
+            assert tatt.kernel_library(dtype, head_dim) == lib
+        for head_dim in (264, 320, 512, 576, 1024):
+            assert tatt.kernel_library(dtype, head_dim) == \
+                "flash_attention_wide"
+    for head_dim in (257, 320, 512, 576, tatt.MAX_HEAD_DIM):
+        q = torch.zeros((1, 2, 2, head_dim), dtype=torch.bfloat16)
+        tatt._check_kernel_operands(q, q, q, None)
+    q = torch.zeros((1, 2, 1, tatt.MAX_HEAD_DIM + 1), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt._check_kernel_operands(q, q, q, None)
 
 
 def test_cost_counts_allowed_pairs():

@@ -12,8 +12,8 @@ against the JAX package's, on the CPU.
   absolute (3e-4 for the Gemma family), the JAX suite's own limits for
   the same comparison (`tests/unit/test_hf_import.py`): two frameworks
   summing the same products in another order over 2-3 layers.
-- Every rejection of the JAX importers raises here too, and the
-  mixture-of-experts families raise with a pointer to the roadmap.
+- Every rejection of the JAX importers raises here too, the
+  mixture-of-experts families' (Qwen3-MoE with dense layers) included.
 """
 
 import jax
@@ -68,6 +68,13 @@ FAMILIES = {
     "layer_types": (dict(model_type="mistral", sliding_window=6,
                          layer_types=["full_attention",
                                       "sliding_attention"]), {}),
+    # The mixture-of-experts families: the routed experts in every block.
+    "mixtral": (dict(model_type="mixtral", num_local_experts=4,
+                     num_experts_per_tok=2), dict(moe="mixtral")),
+    "qwen3_moe": (dict(model_type="qwen3_moe", head_dim=16, num_experts=8,
+                       num_experts_per_tok=3, moe_intermediate_size=24,
+                       norm_topk_prob=True),
+                  dict(moe="qwen3_moe", qk_norm=True)),
 }
 
 # The fields that configure the model, compared between the importers.
@@ -76,13 +83,16 @@ FIELDS = ("vocab_size", "num_layers", "num_heads", "num_kv_heads",
           "norm_eps", "sliding_window", "qkv_bias", "mlp_activation",
           "scale_embed", "post_block_norms", "attn_scale",
           "attn_logit_softcap", "final_logit_softcap", "qk_norm",
-          "attn_kinds", "rope_theta_local")
+          "attn_kinds", "rope_theta_local", "moe_experts", "moe_top_k",
+          "moe_capacity_factor", "moe_norm_topk")
 
 
 def hf_llama_state(cfg, seed=0, tied=False, bias=False, qk_norm=False,
-                   sandwich=False, fused=False):
+                   sandwich=False, fused=False, moe=None):
     """A HF-named float32 state dict for `cfg`, drawn from `seed`, with
-    a rotary buffer the importers skip."""
+    a rotary buffer the importers skip; `moe` ("mixtral" or
+    "qwen3_moe") puts that family's router and experts in place of the
+    MLP."""
     rng = np.random.default_rng(seed)
     d, f = cfg["hidden_size"], cfg["intermediate_size"]
     heads = cfg["num_attention_heads"]
@@ -111,10 +121,26 @@ def hf_llama_state(cfg, seed=0, tied=False, bias=False, qk_norm=False,
                 sd[p + "self_attn.{}_proj.weight".format(name)] = w(n * hd, d)
                 if bias:
                     sd[p + "self_attn.{}_proj.bias".format(name)] = w(n * hd)
-            sd[p + "mlp.gate_proj.weight"] = w(f, d)
-            sd[p + "mlp.up_proj.weight"] = w(f, d)
+            if not moe:
+                sd[p + "mlp.gate_proj.weight"] = w(f, d)
+                sd[p + "mlp.up_proj.weight"] = w(f, d)
         sd[p + "self_attn.o_proj.weight"] = w(d, heads * hd)
-        sd[p + "mlp.down_proj.weight"] = w(d, f)
+        if moe == "mixtral":
+            experts, prefix = cfg["num_local_experts"], "block_sparse_moe."
+            names, width = ("w1", "w3", "w2"), f
+        elif moe:
+            experts, prefix = cfg["num_experts"], "mlp."
+            names = ("gate_proj", "up_proj", "down_proj")
+            width = cfg["moe_intermediate_size"]
+        else:
+            sd[p + "mlp.down_proj.weight"] = w(d, f)
+        if moe:
+            sd[p + prefix + "gate.weight"] = w(experts, d)
+            for e in range(experts):
+                ex = p + prefix + "experts.{}.".format(e)
+                sd[ex + names[0] + ".weight"] = w(width, d)
+                sd[ex + names[1] + ".weight"] = w(width, d)
+                sd[ex + names[2] + ".weight"] = w(d, width)
         if qk_norm:
             sd[p + "self_attn.q_norm.weight"] = 1 + w(hd)
             sd[p + "self_attn.k_norm.weight"] = 1 + w(hd)
@@ -266,11 +292,30 @@ def test_llama_rejections_match_jax():
 
 @pytest.mark.parametrize("model_type", ["mixtral", "qwen3_moe"])
 def test_moe_families_raise_with_the_roadmap_item(model_type):
-    cfg, sd = _family("llama")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*moe"):
-        import_hf_llama(state_dict=sd, config=dict(cfg,
-                                                   model_type=model_type),
-                        device="cpu")
+    """The MoE families import (test_llama_import_equals_jax_bit_for_bit
+    has their tensors): drop-free, with each family's HF defaults for a
+    raw config missing the routing keys, as JAX's importer reads them;
+    what JAX rejects (Qwen3-MoE with dense layers interleaved, a
+    missing expert) raises here too."""
+    cfg, sd = _family(model_type)
+    tlm = import_hf_llama(state_dict=sd, config=cfg, device="cpu")
+    assert tlm.moe_capacity_factor is None and all(
+        hasattr(b, "moe") for b in tlm.blocks)
+    bare = {k: v for k, v in cfg.items()
+            if k not in ("num_experts_per_tok", "norm_topk_prob")}
+    jlm, _ = jhf.import_hf_llama(state_dict=sd, config=bare)
+    tlm = import_hf_llama(state_dict=sd, config=bare, device="cpu")
+    assert (tlm.moe_top_k, tlm.moe_norm_topk) == \
+        (jlm.moe_top_k, jlm.moe_norm_topk) == \
+        ((8, False) if model_type == "qwen3_moe" else (2, True))
+    if model_type == "qwen3_moe":
+        for overrides in (dict(mlp_only_layers=[1]),
+                          dict(decoder_sparse_step=2)):
+            _rejects(import_hf_llama, NotImplementedError, "mlp_only_layers",
+                     dict(cfg, **overrides), sd)
+    missing = dict(sd)
+    del missing[next(k for k in sd if ".experts.1." in k)]
+    _rejects(import_hf_llama, KeyError, "missing", cfg, missing)
 
 
 def test_gpt2_rejections_match_jax():
@@ -326,6 +371,12 @@ TINY = {
     "Qwen2": (dict(tie_word_embeddings=False), 2e-4),
     "Phi3": (dict(intermediate_size=48, pad_token_id=0, bos_token_id=1,
                   eos_token_id=2, tie_word_embeddings=False), 2e-4),
+    # The MoE families, imported drop-free as HF routes.
+    "Mixtral": (dict(num_local_experts=4, num_experts_per_tok=2,
+                     tie_word_embeddings=False), 2e-4),
+    "Qwen3Moe": (dict(num_experts=8, num_experts_per_tok=2,
+                      moe_intermediate_size=24, norm_topk_prob=True,
+                      head_dim=8, tie_word_embeddings=False), 2e-4),
 }
 
 

@@ -289,6 +289,66 @@ def test_flash_kernels_match_plain_version(dtype, head_dim, variant, shape):
     assert torch.isfinite(out).all() and torch.isfinite(dq).all()
 
 
+# head_dims above the widest template run the wide kernels
+# (csrc/flash_attention_wide.cu): 264 (a chunk of 128 output columns and a
+# slice of 64 score columns each hold 8 real ones), 320, 512 (the public
+# deepseek-ai/DeepSeek-V4-Flash head_dim) and 576 (sarvam-105b's), under
+# the limits above; "all" puts window, softcap and key mask together.
+WIDE_HEAD_DIMS = (264, 320, 512, 576)
+WIDE_VARIANTS = dict(FLASH_VARIANTS, all=dict(
+    causal=True, mask=True, window=16, logit_softcap=5.0, q_scale=5.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["s80", "s300", "gqa8"])
+@pytest.mark.parametrize("variant", sorted(WIDE_VARIANTS))
+@pytest.mark.parametrize("head_dim", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_flash_kernels_match_plain_version(dtype, head_dim, variant,
+                                                shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import attention as tatt
+
+    batch, seq, heads, kv_heads = FLASH_SHAPES[shape]
+    rng = np.random.default_rng(head_dim)
+    dev = torch.device("cuda")
+    kw = dict(WIDE_VARIANTS[variant])
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=dtype,
+                            device=dev, requires_grad=True)
+
+    q = t(batch, seq, heads, head_dim, scale=kw.pop("q_scale", 1.0))
+    k = t(batch, seq, kv_heads, head_dim)
+    v = t(batch, seq, kv_heads, head_dim)
+    dout = torch.tensor(rng.normal(size=(batch, seq, heads, head_dim)),
+                        dtype=dtype, device=dev)
+    if kw.pop("mask", False):
+        mask = rng.random((batch, seq)) < 0.7
+        mask[0] = False                     # every row of example 0 dead
+        kw["mask"] = torch.tensor(mask, device=dev)
+    assert tatt.kernel_library(dtype, head_dim) == "flash_attention_wide"
+    before = dict(tatt.launches)
+    out = tatt.flash_attention(q, k, v, **kw)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkdv"):
+        assert tatt.launches[name] == before[name] + 1
+    f32 = [x.detach().float() for x in (q, k, v, dout)]
+    delta = (f32[3] * out.detach().float()).sum(-1).transpose(1, 2)
+    _close(out, tatt.mha_reference(*f32[:3], **kw), dtype)
+    grads = tatt.mha_backward_reference(*f32, delta, **kw)
+    for got, want in zip((dq, dk, dv), grads):
+        _close(got, want, dtype)
+    if "mask" in kw:
+        assert (out[0] == 0).all() and (dq[0] == 0).all()
+        assert (dk[0] == 0).all() and (dv[0] == 0).all()
+    assert torch.isfinite(out).all() and torch.isfinite(dq).all()
+
+
 # head_dims other than the template widths: multiples of 8 below each
 # width (8 and 32 at 64; 72, 80 (phi-2) and 96 (Phi-3-mini) at 128; 136,
 # whose fourth box of 64 columns lies wholly past D, and 200 at 256), and
@@ -336,13 +396,22 @@ def test_flash_wrapper_rejects_what_the_kernels_do_not_take():
     from cloud_tpu_torch.ops import attention as tatt
 
     dev = torch.device("cuda")
-    # Any head_dim up to 256 runs (test_flash_kernels_at_any_head_dim);
-    # past the widest template it raises.
+    # Any head_dim runs: up to 256 on the template kernels
+    # (test_flash_kernels_at_any_head_dim), past it on the wide kernels
+    # (test_wide_flash_kernels_match_plain_version), 257 through the
+    # zero-padded copy; past the C interface's 16-bit field it raises.
     for head_dim in (257, 320):
         q = torch.zeros((1, 8, 2, head_dim), dtype=torch.bfloat16,
                         device=dev)
-        with pytest.raises(ValueError, match="head_dim"):
-            tatt.flash_attention(q, q, q)
+        before = tatt.launches["flash_attention_fwd"]
+        out = tatt.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        assert tatt.launches["flash_attention_fwd"] == before + 1
+        assert out.shape == q.shape and (out == 0).all()
+    q = torch.zeros((1, 2, 1, tatt.MAX_HEAD_DIM + 1), dtype=torch.bfloat16,
+                    device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tatt.flash_attention(q, q, q)
     q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="device"):
         tatt.flash_attention(q, q.cpu(), q)
@@ -683,5 +752,67 @@ def test_llama_decode_on_the_card():
     before = dict(tatt.launches)
     got = generate(card, tokens[:, :20], 12, temperature=0.0)
     assert tatt.launches == before  # generation reaches no flash kernel
+    want = generate(cpu, tokens[:, :20], 12, temperature=0.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_moe_llama_step_and_decode_on_the_card():
+    """A 2-layer MoE `LlamaLM` (8 experts of width 64, top 2, q/k norms,
+    f32, capacity factor 1.0, which binds): one training step's logits,
+    aux losses and gradients on the card (the flash and norm kernels;
+    the experts by sorted dispatch) match the same step on the CPU (the
+    plain versions) within 1e-4 (f32 sums in another order; the routes
+    must agree for that), and its drop-free greedy `generate()` on the
+    card equals the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.models import LlamaLM, generate
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.ops import fused_norm as tfn
+
+    cfg = dict(vocab_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+               d_model=128, d_ff=64, head_dim=32, max_seq_len=128,
+               rope_style="rotate_half", qk_norm=True, moe_experts=8,
+               moe_top_k=2, moe_capacity_factor=1.0,
+               compute_dtype=torch.float32)
+    card = LlamaLM(device="cuda", seed=1, **cfg)
+    cpu = LlamaLM(device="cpu", seed=1, **cfg)
+    with torch.no_grad():
+        for model in (card, cpu):
+            for block in model.blocks:
+                block.moe.router.mul_(20.0)   # routes far from uniform
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, size=(3, 40)))
+    labels = torch.roll(tokens, -1, 1)
+    results = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        before = dict(tatt.launches)
+        logits = model(tokens.to(dev))
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, 256), labels.to(dev).reshape(-1)) \
+            + 0.01 * sum(model.aux_losses)
+        loss.backward()
+        launched = tatt.launches["flash_attention_dkdv"] - \
+            before["flash_attention_dkdv"]
+        assert launched == (2 if dev == "cuda" else 0)
+        results.append((logits.detach().cpu(),
+                        [a.item() for a in model.aux_losses],
+                        {n: p.grad.cpu() for n, p in
+                         model.named_parameters()}))
+    (lc, ac, gc), (lp, ap, gp) = results
+    np.testing.assert_allclose(lc, lp, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ac, ap, rtol=1e-4)
+    assert all(a > 2.0 for a in ac)   # capacity binds: load is uneven
+    for name in gp:
+        np.testing.assert_allclose(gc[name], gp[name], rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+    for model in (card, cpu):
+        model.moe_capacity_factor = None
+        for block in model.blocks:
+            block.moe.capacity_factor = None
+    norm0 = tfn.launches["fused_norm"]
+    got = generate(card, tokens[:, :20], 12, temperature=0.0)
+    assert tfn.launches["fused_norm"] == norm0 + 2 * 12
     want = generate(cpu, tokens[:, :20], 12, temperature=0.0)
     assert torch.equal(got, want)

@@ -223,8 +223,11 @@ def test_converters_round_trip_bit_equal():
 def test_unported_paths_raise():
     # decode=True is ported (tests/test_torch_llama_decode.py).
     assert LlamaLM(decode=True, device="cpu", **CFG).decode
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        LlamaLM(moe_experts=4, device="cpu", **CFG)
+    # The MoE MLP is ported (tests/test_torch_llama_moe.py).
+    moe = LlamaLM(moe_experts=4, device="cpu", **CFG)
+    assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
+               for b in moe.blocks)
+    assert moe.blocks[0].moe.expert_gate.shape == (4, 64, 176)
     for impl in ("ring", "ulysses"):
         with pytest.raises(NotImplementedError, match="parallel/"):
             LlamaLM(attention_impl=impl, device="cpu", **CFG)

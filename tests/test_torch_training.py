@@ -342,6 +342,53 @@ def test_weighted_fit_and_accumulation_match_jax():
     assert tt.state.step == 4 and tt._updates == 2
 
 
+def test_moe_fit_adds_the_aux_loss_as_jax_does():
+    """A Switch-MoE TransformerLM (4 experts, capacity factor 1.25) from
+    the same parameters: one epoch of sgd with accumulation over 2 steps,
+    whose history's loss includes 0.01 x the blocks' aux losses, as in
+    JAX (the aux divided with the rest of the loss), and `evaluate`,
+    which adds none. f32; the same tolerance as the sgd slice."""
+    x, y = _data(3, 12)
+    cfg = dict(CFG, moe_experts=4)
+    model = jtf.TransformerLM(compute_dtype=jnp.float32, norm_eps=1e-5,
+                              **cfg)
+    jt = jtrainer.Trainer(model, optimizer="sgd", metrics=("accuracy",),
+                          seed=1, gradient_accumulation_steps=2)
+    jt.build(x[:1])
+    params = jax.device_get(jt.state.params)
+    tm = TransformerLM(compute_dtype=torch.float32, norm_eps=1e-5,
+                       device="cpu", **cfg)
+    tt = ttrainer.Trainer(tm, optimizer="sgd", metrics=("accuracy",),
+                          seed=1, gradient_accumulation_steps=2)
+    tt.build(variables=params_from_flax(params))
+    kw = dict(epochs=1, batch_size=3, verbose=False)
+    jh, th = jt.fit(x, y, **kw), tt.fit(x, y, **kw)
+    for key in ("loss", "accuracy"):
+        np.testing.assert_allclose(th[key], jh[key], rtol=1e-5, atol=1e-5)
+    got = params_to_flax(tm.state_dict(), 4)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(
+            jax.device_get(jt.state.params)):
+        node = got
+        for entry in path:
+            node = node[entry.key]
+        np.testing.assert_allclose(node, np.asarray(leaf), rtol=1e-5,
+                                   atol=1e-5,
+                                   err_msg=jax.tree_util.keystr(path))
+    je = jt.evaluate(x[:5], y[:5], batch_size=3, verbose=False)
+    te = tt.evaluate(x[:5], y[:5], batch_size=3, verbose=False)
+    np.testing.assert_allclose(te["loss"], je["loss"], rtol=1e-5,
+                               atol=1e-5)
+    tm.eval()
+    with torch.no_grad():
+        logits = tm(torch.from_numpy(x[:3]).long())
+    ce = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, CFG["vocab_size"]),
+        torch.from_numpy(y[:3]).long().reshape(-1))
+    np.testing.assert_allclose(
+        tt.evaluate(x[:3], y[:3], batch_size=3, verbose=False)["loss"],
+        ce.item(), rtol=1e-6)
+
+
 def test_fit_fetches_once_per_epoch():
     from cloud_tpu_torch.parallel import runtime
 

@@ -214,14 +214,91 @@ def test_warp_logits_matches_jax():
 
 
 def test_non_decode_forward_is_not_ported(port_model):
-    """The non-decode forward is ported (see the tests below); the parts
-    of it that are not, the MoE MLP and bidirectional blocks, raise."""
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        TransformerLM(moe_experts=4, device="cpu", **CFG)
+    """The non-decode forward is ported (see the tests below), with the
+    MoE MLP (test_moe_training_forward_matches_jax); an MoE model's
+    generate() and serving, and bidirectional blocks, raise."""
+    from cloud_tpu_torch.serving import Scheduler
+
+    moe = TransformerLM(moe_experts=4, device="cpu", **CFG)
+    assert all(hasattr(b, "moe") for b in moe.blocks)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        generate(moe, np.zeros((1, 4), np.int64), 2, temperature=0.0)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        Scheduler(moe, slots=2)
     with pytest.raises(NotImplementedError, match="TransformerEncoder"):
         ttf.TransformerBlock(64, 4, 128, 1e-5, None, causal=False)
     logits = port_model(torch.zeros((1, 4), dtype=torch.long))
     assert logits.shape == (1, 4, CFG["vocab_size"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_moe_training_forward_matches_jax(dtype):
+    """A Switch-MoE TransformerLM (8 experts, capacity factor 1.25, which
+    binds): logits and each block's aux loss against JAX's (its sown
+    "losses"), and in f32 every gradient of the cross entropy plus 0.01
+    x the aux. f32: TOL. bf16: the port keeps the residual stream, the
+    final norm and the head in f32 where JAX rounds them to bf16 (ROADMAP
+    §3): each of those roundings moves a logit by up to 2^-8 of the
+    values it came from, and 2 blocks' residual adds and the head's
+    output at |logits| < ~2 reach 0.07 here, so the logits agree within
+    0.1; the aux losses within 1e-2 relative (block 1's router reads
+    that residual stream, and a 2^-8 change of its logits, which the
+    sharpened router makes ~5, moves each probability by ~1%)."""
+    cfg = dict(CFG, moe_experts=8)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jmodel = jtf.TransformerLM(compute_dtype=jdtype, norm_eps=1e-5, **cfg)
+    params = jmodel.init(jax.random.PRNGKey(4),
+                         jnp.zeros((1, 8), jnp.int32))["params"]
+    rng = np.random.default_rng(2)
+    params = jax.tree_util.tree_map(
+        lambda a: a + 0.05 * rng.normal(size=a.shape).astype(np.float32),
+        params)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, a: a * 8 if "router" in jax.tree_util.keystr(p) else a,
+        params)
+    tmodel = TransformerLM(compute_dtype=dtype, norm_eps=1e-5, device="cpu",
+                           **cfg)
+    tmodel.load_state_dict(params_from_flax(jax.device_get(params)))
+    tokens = rng.integers(0, 64, size=(2, 20))
+    labels = rng.integers(0, 64, size=(2, 20))
+
+    def loss(p):
+        logits, sown = jmodel.apply({"params": p}, jnp.asarray(tokens),
+                                    mutable=["losses"])
+        logp = jax.nn.log_softmax(logits)
+        nll = -jnp.take_along_axis(logp, jnp.asarray(labels)[..., None], -1)
+        auxes = [sown["losses"]["block_%d" % i]["moe_aux_loss"]
+                 for i in range(2)]
+        return jnp.mean(nll) + 0.01 * sum(auxes), (logits, auxes)
+
+    (jloss, (jlogits, jaux)), jgrads = jax.value_and_grad(
+        loss, has_aux=True)(params)
+    tmodel.train()
+    logits = tmodel(torch.from_numpy(tokens))
+    aux = [a.item() for a in tmodel.aux_losses]
+    tol = TOL if dtype == torch.float32 else 0.1
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(jlogits),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(aux, [float(a) for a in jaux],
+                               rtol=TOL if dtype == torch.float32 else 1e-2)
+    assert all(a > 1.0 for a in aux)  # the router is far from uniform
+    if dtype == torch.bfloat16:
+        return
+    tloss = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, 64), torch.from_numpy(labels).reshape(-1)) \
+        + 0.01 * sum(tmodel.aux_losses)
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=TOL)
+    grads = params_to_flax({n: p.grad for n, p in tmodel.named_parameters()},
+                           4)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jgrads):
+        node = grads
+        for entry in path:
+            node = node[entry.key]
+        np.testing.assert_allclose(node, np.asarray(leaf), rtol=1e-4,
+                                   atol=TOL,
+                                   err_msg=jax.tree_util.keystr(path))
 
 
 def _jax_train_loss(model, tokens, labels, mask):
