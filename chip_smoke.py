@@ -108,7 +108,26 @@ then:
    first and last step; then sets the model drop-free and generates
    with it and its `import_hf_llama` copy (as `qwen3_moe`) as phase 8
    does (the chain rule held only if the fit left the cycle plateau);
-10. prints the kernel table as one JSON line (one row per kernel and
+10. holds `lm_head_loss` (bf16, 5 % of labels -1, chunk 8192) at
+   Qwen3-30B-A3B's head (N 4096, D 2048, V 151936) and TinyLlama's (N
+   8192, D 2048, V 32000) against `lm_head_loss_reference` in f32 per
+   element (loss, dh, dW), with its peak extra memory and fwd+bwd time
+   beside the materialised f32 reference's and the one-call library
+   route's (F.linear + F.cross_entropy in bf16); then drives the
+   training loop on GPT-2 small (phase 6's model and batch): (U) 3
+   epochs of 8 steps with ema_decay 0.999, async logging and the
+   callbacks MetricsLogger, ModelCheckpoint (every epoch, async),
+   TerminateOnNaN and EarlyStopping; (R) a fresh Trainer from the same
+   seed under `fit(resume="auto")` with the chaos plan `preempt@12`,
+   which must end at step 24 with parameters, EMA shadow and last-epoch
+   loss bit-equal to U's, one fault, one retry and one resume; each of U
+   and R launching each flash kernel layers x 24 times; a third Trainer
+   restoring U's last checkpoint, whose `evaluate(use_ema=True)` equals
+   U's; (T) one epoch with `trainable="lm_head|block_11"`, frozen
+   parameters bit-equal, AdamW state for the trained ones alone; and
+   the checkpoint's bytes, sync and async save and restore seconds.
+   The checkpoints live under `build/chip_smoke_ckpt/` and are removed;
+11. prints the kernel table as one JSON line (one row per kernel and
    path that launches it, with that path's launches and the times at
    its shape), the card line, and the contract line
    `{"ok": true, "device": {...}}` last.
@@ -2568,6 +2587,368 @@ def generate_qwen3(model, data, device):
                           chain_taught=taught)
 
 
+# -- phase 10: lm_head_loss and the training loop -------------------------
+
+# (name, N, D, V): Qwen3-30B-A3B's head (the public Qwen/Qwen3-30B-A3B
+# config.json: hidden 2048, vocab 151936) at phase 9's batch 2 x 2048,
+# and TinyLlama-1.1B's (hidden 2048, vocab 32000) at phase 7's 4 x 2048.
+HEAD_CASES = (("qwen3_30b_a3b", 2 * 2048, 2048, 151936),
+              ("tinyllama_1_1b", 4 * 2048, 2048, 32000))
+# Share of labels set to -1 (ignored) in the head checks.
+HEAD_IGNORED = 0.05
+# lm_head_loss on bf16 inputs against lm_head_loss_reference on the same
+# values in f32, element by element (`compare`): the loss is f32 in
+# both, the same products summed in another order (1e-5 relative plus
+# 1e-4 of the row, i.e. of the loss's rms); dh and dW are rounded to
+# bf16 at the end (2^-8 relative: bf16's largest half step, at the
+# bottom of a binade; plus 1e-3 rms(row) for the f32 sums in another
+# order).
+HEAD_TOL = {"loss": (1e-5, 1e-4), "grad": (2.0 ** -8, 1e-3)}
+# The training loop on GPT-2 small: 3 epochs of 8 steps at phase 6's
+# batch 8 x 1024; the resumed run is preempted before step 12 (epoch 1,
+# batch 4).
+LOOP_EPOCHS, LOOP_STEPS, LOOP_PREEMPT = 3, 8, 12
+LOOP_EMA = 0.999
+LOOP_TRAINABLE = r"lm_head|block_11"
+
+
+def head_inputs(n, d, v, seed):
+    """bf16 hidden [n, d] ~ N(0, 1), weights [d, v] ~ N(0, 0.02) and int64
+    labels with HEAD_IGNORED of them -1, drawn on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.randn(n, d, generator=gen, device="cuda").bfloat16()
+    w = (0.02 * torch.randn(d, v, generator=gen, device="cuda")).bfloat16()
+    y = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    drop = torch.rand(n, generator=gen, device="cuda") < HEAD_IGNORED
+    return h, w, torch.where(drop, -1, y)
+
+
+def peak_extra_bytes(fn):
+    """Bytes allocated at the peak of fn() beyond what was allocated
+    before it (its results included while they live)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def event_ms(fn, iters=5):
+    """Mean device time per call of fn() between CUDA events, after one
+    call to warm up (the calls queue back to back, so the host's launches
+    hide behind the device's work when it is the longer)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_lm_head_loss():
+    """Phase 10a: lm_head_loss at Qwen3-30B-A3B's and TinyLlama's heads,
+    against its plain version per element, with peak memory and times
+    beside the materialised routes'."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.ops import fused_ce
+
+    results = {}
+    for name, n, d, v in HEAD_CASES:
+        h, w, y = head_inputs(n, d, v, seed=10)
+
+        def chunked():
+            hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
+            loss = fused_ce.lm_head_loss(hh, ww, y)
+            return (loss,) + torch.autograd.grad(loss.sum(), (hh, ww))
+
+        def reference():
+            hh = h.detach().float().requires_grad_()
+            ww = w.detach().float().requires_grad_()
+            loss = fused_ce.lm_head_loss_reference(hh, ww, y)
+            return (loss,) + torch.autograd.grad(loss.sum(), (hh, ww))
+
+        def library():
+            hh, ww = h.detach().requires_grad_(), w.detach().requires_grad_()
+            loss = F.cross_entropy(F.linear(hh, ww.t()), y, ignore_index=-1,
+                                   reduction="sum")
+            return (loss,) + torch.autograd.grad(loss, (hh, ww))
+
+        got = chunked()
+        want = reference()
+        checks = {"loss": compare(got[0][:, None], want[0][:, None],
+                                  *HEAD_TOL["loss"]),
+                  "dh": compare(got[1], want[1], *HEAD_TOL["grad"]),
+                  "dW": compare(got[2], want[2], *HEAD_TOL["grad"])}
+        ignored = y < 0
+        zero_ignored = bool((got[0][ignored] == 0).all())
+        del got, want
+        torch.cuda.empty_cache()
+        dw_bytes = d * v * 2
+        row = {
+            "N": n, "D": d, "V": v, "chunk": 8192,
+            "ignored": int(ignored.sum()), "checks": checks,
+            "ignored_loss_zero": zero_ignored,
+            "peak_extra_bytes": peak_extra_bytes(chunked),
+            "peak_extra_bytes_reference_f32": peak_extra_bytes(reference),
+            "peak_extra_bytes_library_bf16": peak_extra_bytes(library),
+            "dw_bytes": dw_bytes,
+            "logits_and_grad_f32_bytes": 2 * n * v * 4,
+            "ms": event_ms(chunked), "plain_ms": event_ms(reference),
+            "library_ms": event_ms(library),
+        }
+        torch.cuda.empty_cache()
+        results[name] = row
+        log("lm_head_loss {} (N {}, D {}, V {}, {} ignored): loss tol ratio "
+            "{:.3f}, dh {:.3f}, dW {:.3f}; peak extra {:.1f} MB (dW {:.1f} "
+            "MB) against the f32 reference's {:.1f} MB and the bf16 "
+            "library route's {:.1f} MB; fwd+bwd {:.2f} ms, plain {:.2f} ms, "
+            "F.linear + F.cross_entropy {:.2f} ms".format(
+                name, n, d, v, row["ignored"], checks["loss"]["tol_ratio"],
+                checks["dh"]["tol_ratio"], checks["dW"]["tol_ratio"],
+                row["peak_extra_bytes"] / 1e6, dw_bytes / 1e6,
+                row["peak_extra_bytes_reference_f32"] / 1e6,
+                row["peak_extra_bytes_library_bf16"] / 1e6, row["ms"],
+                row["plain_ms"], row["library_ms"]))
+        if not (all(c["tol_ratio"] <= 1.0 for c in checks.values())
+                and zero_ignored):
+            raise AssertionError("lm_head_loss disagrees with its plain "
+                                 "version at {}: {}".format(name, checks))
+        del h, w, y
+    return results
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def max_param_diff(a, b):
+    """Largest |a - b| over the two models' parameters, and whether every
+    parameter is bit-equal."""
+    import torch
+
+    worst, equal = 0.0, True
+    for (name, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        if not torch.equal(p, q):
+            equal = False
+            worst = max(worst, (p.float() - q.float()).abs().max().item())
+    return worst, equal
+
+
+def optimizer_state_bytes(optimizer):
+    return sum(t.numel() * t.element_size()
+               for state in optimizer.state.values()
+               for t in state.values() if hasattr(t, "numel"))
+
+
+def training_loop(device, root):
+    """Phase 10b: GPT-2 small through callbacks, checkpoints, a preempted
+    and resumed fit, an EMA evaluation of a restored checkpoint and a
+    fit with frozen parameters. Returns the summary (with the flash
+    launches of U and of R, each counted from 0 around its fit)."""
+    import shutil
+
+    import torch
+    from cloud_tpu_torch.analysis import chaos
+    from cloud_tpu_torch.models import TransformerLM
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.training import (EarlyStopping, MetricsLogger,
+                                          ModelCheckpoint, TerminateOnNaN,
+                                          Trainer, checkpoint, make_optimizer,
+                                          read_metrics_log, resilience)
+    from cloud_tpu_torch.training.schedules import warmup_cosine
+
+    work = os.path.join(root, "build", "chip_smoke_ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    n = LOOP_STEPS * TRAIN_BATCH
+    x, y = training_data(5, n + 2 * TRAIN_BATCH, GPT2_SMALL["vocab_size"],
+                         TRAIN_SEQ)
+    x_val, y_val = x[n:], y[n:]
+    x, y = x[:n], y[:n]
+    total = LOOP_EPOCHS * LOOP_STEPS
+
+    def trainer(**kw):
+        model = TransformerLM(compute_dtype=torch.bfloat16, device=device,
+                              seed=0, **GPT2_SMALL)
+        return Trainer(model, optimizer=make_optimizer(
+            "adamw", warmup_cosine(TRAIN_LR, total, total // 10)),
+            metrics=("accuracy",), seed=0, **kw)
+
+    def flash_launches():
+        return {k: v for k, v in all_launches().items() if k in tatt.launches}
+
+    layers = GPT2_SMALL["num_layers"]
+    try:
+        # (U) uninterrupted, with the callbacks and async logging.
+        u = trainer(ema_decay=LOOP_EMA)
+        reset_all_launches()
+        t0 = time.monotonic()
+        hist_u = u.fit(x, y, batch_size=TRAIN_BATCH, epochs=LOOP_EPOCHS,
+                       verbose=False, callbacks=[
+                           MetricsLogger(os.path.join(work, "metrics.jsonl")),
+                           ModelCheckpoint(os.path.join(work, "u"),
+                                           use_async=True),
+                           TerminateOnNaN(),
+                           EarlyStopping(monitor="loss", patience=10)])
+        torch.cuda.synchronize()
+        u_s = time.monotonic() - t0
+        launches_u = flash_launches()
+        records = read_metrics_log(os.path.join(work, "metrics.jsonl"))
+        saved = sorted(int(s) for s in os.listdir(os.path.join(work, "u"))
+                       if s.isdigit())
+        want = {k: layers * total for k in launches_u}
+        if (u.state.step != total or launches_u != want
+                or [r["epoch"] for r in records] != list(range(LOOP_EPOCHS))
+                or saved != [LOOP_STEPS * (e + 1)
+                             for e in range(LOOP_EPOCHS)]):
+            raise AssertionError(
+                "U: step {}, launches {} (want {}), records {}, "
+                "checkpoints {}".format(u.state.step, launches_u, want,
+                                        records, saved))
+        log("loop U: {} steps in {:.2f} s, losses {}; checkpoints {}".format(
+            total, u_s, hist_u["loss"], saved))
+        for step in saved[:-1]:      # keep the last for the restore below
+            shutil.rmtree(os.path.join(work, "u", str(step)))
+
+        # (R) preempted before step 12 and resumed under resume="auto".
+        r = trainer(ema_decay=LOOP_EMA)
+        resilience.reset_guard_stats()
+        chaos.install("preempt@{}".format(LOOP_PREEMPT))
+        reset_all_launches()
+        t0 = time.monotonic()
+        try:
+            hist_r = r.fit(x, y, batch_size=TRAIN_BATCH, epochs=LOOP_EPOCHS,
+                           verbose=False, resume="auto",
+                           resume_from=os.path.join(work, "r"),
+                           callbacks=[resilience.AutoCheckpoint(
+                               os.path.join(work, "r"), use_async=True)])
+        finally:
+            chaos.uninstall()
+        torch.cuda.synchronize()
+        r_s = time.monotonic() - t0
+        launches_r = flash_launches()
+        guard = resilience.guard_stats()
+        diff, bitwise = max_param_diff(u.model, r.model)
+        ema_diff = max((u.ema_params[k].float() - r.ema_params[k].float())
+                       .abs().max().item() for k in u.ema_params)
+        loss_diff = abs(hist_r["loss"][-1] - hist_u["loss"][-1])
+        want = {k: layers * total for k in launches_r}
+        log("loop R: preempt@{} resumed to step {} in {:.2f} s; losses {}; "
+            "last-epoch loss diff {:.3g}; params max diff {:.3g} (bitwise "
+            "{}), EMA {:.3g}; guard {}".format(
+                LOOP_PREEMPT, r.state.step, r_s, hist_r["loss"], loss_diff,
+                diff, bitwise, ema_diff, guard))
+        if not (r.state.step == total and launches_r == want
+                and (guard["faults"], guard["retries"], guard["resumes"])
+                == (1, 1, 1) and bitwise and loss_diff == 0.0
+                and ema_diff == 0.0):
+            raise AssertionError(
+                "R: step {}, launches {} (want {}), guard {}, params "
+                "bitwise {} (max diff {}), loss diff {}, EMA diff {}".format(
+                    r.state.step, launches_r, want, guard, bitwise, diff,
+                    loss_diff, ema_diff))
+        del r
+        shutil.rmtree(os.path.join(work, "r"))
+
+        # A third Trainer restores U's last checkpoint and evaluates the
+        # EMA shadow: the same numbers as U's.
+        e = trainer(ema_decay=LOOP_EMA)
+        ckpt_bytes = dir_bytes(os.path.join(work, "u", str(total)))
+        t0 = time.monotonic()
+        e.restore_checkpoint(os.path.join(work, "u"))
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        val_u = u.evaluate(x_val, y_val, batch_size=TRAIN_BATCH,
+                           verbose=False, use_ema=True)
+        val_e = e.evaluate(x_val, y_val, batch_size=TRAIN_BATCH,
+                           verbose=False, use_ema=True)
+        live = u.evaluate(x_val, y_val, batch_size=TRAIN_BATCH,
+                          verbose=False)
+        log("loop EMA: evaluate(use_ema=True) {} restored, {} in U; live "
+            "weights {}".format(val_e, val_u, live))
+        if val_e != val_u or e.state.step != total:
+            raise AssertionError("the restored EMA evaluation {} differs "
+                                 "from U's {}".format(val_e, val_u))
+
+        # Save and restore times, on U's state.
+        timing_dir = os.path.join(work, "timing")
+        t0 = time.monotonic()
+        u.save_checkpoint(timing_dir)
+        sync_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        u.save_checkpoint(os.path.join(timing_dir, "async"), use_async=True)
+        async_return_s = time.monotonic() - t0
+        checkpoint.wait_until_finished()
+        async_done_s = time.monotonic() - t0
+        log("loop checkpoint: {:.1f} MB; sync save {:.2f} s, async save "
+            "returns in {:.2f} s and finishes in {:.2f} s, restore {:.2f} "
+            "s".format(ckpt_bytes / 1e6, sync_s, async_return_s,
+                       async_done_s, restore_s))
+        state_bytes_u = optimizer_state_bytes(u.optimizer)
+        del u, e
+        shutil.rmtree(work)
+        torch.cuda.empty_cache()
+
+        # (T) one epoch with frozen parameters.
+        t = trainer(trainable=LOOP_TRAINABLE)
+        before = {k: p.detach().clone()
+                  for k, p in t.model.named_parameters()}
+        t.fit(x, y, batch_size=TRAIN_BATCH, epochs=1, verbose=False)
+        frozen = [k for k, p in t.model.named_parameters()
+                  if not p.requires_grad]
+        moved = [k for k in frozen
+                 if not torch.equal(before[k], dict(
+                     t.model.named_parameters())[k])]
+        trained = [k for k, p in t.model.named_parameters()
+                   if p.requires_grad]
+        state_bytes_t = optimizer_state_bytes(t.optimizer)
+        with_state = len(t.optimizer.state)
+        log("loop T: trainable={!r}: {} trained, {} frozen ({} moved); "
+            "AdamW state {:.1f} MB over {} tensors, U's {:.1f} MB".format(
+                LOOP_TRAINABLE, len(trained), len(frozen), len(moved),
+                state_bytes_t / 1e6, with_state, state_bytes_u / 1e6))
+        if moved or with_state != len(trained) or not frozen:
+            raise AssertionError("T: frozen parameters moved {} or AdamW "
+                                 "state for {} of {} trained".format(
+                                     moved, with_state, len(trained)))
+        del t, before
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    summary = {
+        "model": "GPT-2 small bf16", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "epochs": LOOP_EPOCHS, "steps_per_epoch": LOOP_STEPS,
+        "ema_decay": LOOP_EMA, "history_u": hist_u, "history_r": hist_r,
+        "fit_u_s": u_s, "fit_r_s": r_s, "guard_stats": guard,
+        "resume_param_max_diff": diff, "resume_bitwise": bitwise,
+        "resume_last_loss_diff": loss_diff, "resume_ema_max_diff": ema_diff,
+        "ema_evaluate_restored": val_e, "ema_evaluate_u": val_u,
+        "evaluate_live_u": live, "checkpoint_bytes": ckpt_bytes,
+        "sync_save_s": sync_s, "async_save_return_s": async_return_s,
+        "async_save_done_s": async_done_s, "restore_s": restore_s,
+        "trainable": LOOP_TRAINABLE, "trained_params": len(trained),
+        "frozen_params": len(frozen),
+        "optimizer_state_bytes_trainable": state_bytes_t,
+        "optimizer_state_bytes_u": state_bytes_u,
+        "launches_u": launches_u, "launches_r": launches_r,
+    }
+    return summary
+
+
 def llama_gate_seeds(seeds, out_path):
     """Phase 7's fit alone (`llama_data`, `llama_fit`; no other check),
     once per data seed, on the `cloud_tpu_torch` that is first on
@@ -2739,6 +3120,11 @@ def main():
         qwen3, qwen3_data, device)
     del qwen3
     torch.cuda.empty_cache()
+    t_phase10 = time.monotonic()
+    head_loss = check_lm_head_loss()
+    loop = training_loop(device, root)
+    loop["phase10_s"] = time.monotonic() - t_phase10
+    log("phase 10 took {:.1f} s".format(loop["phase10_s"]))
 
     # One row per kernel and path that launches it: the launches counted
     # from 0 around that path's run, the times and errors at its shape.
@@ -2750,8 +3136,11 @@ def main():
         ("paged_attention_int8", "paged_attention.cu",
          "paged_attention.py:207", "serve_int8", launches_q,
          rows["paged_attention_int8"])]
+    loop_launches = {k: loop["launches_u"][k] + loop["launches_r"][k]
+                     for k in loop["launches_u"]}
     for path, times, launched in (
             ("gpt2_train", flash_rows, flash_launches),
+            ("gpt2_loop", flash_rows, loop_launches),
             ("tinyllama_train", flash_rows_llama, llama_launches),
             ("qwen3moe_train", flash_rows_qwen3, qwen3_launches)):
         for name, line in (("flash_attention_fwd", "179"),
@@ -2760,7 +3149,9 @@ def main():
             entries.append((name, "flash_attention.cu", "attention.py:" + line,
                             path, launched[name],
                             dict(times[name],
-                                 max_abs_err=flash_err[path][name])))
+                                 max_abs_err=flash_err[
+                                     "gpt2_train" if path == "gpt2_loop"
+                                     else path][name])))
     for name, source, replaces, table in (
             ("fused_norm", "fused_norm.cu", "fused_norm.py:70", norm_rows),
             ("fused_norm_noresidual", "fused_norm.cu", "fused_norm.py:70",
@@ -2816,6 +3207,7 @@ def main():
                    "qwen3moe_training": qwen3_training,
                    "qwen3moe_generate": qwen3_generation,
                    "qwen3moe_norm_rows": qwen3_norm_rows,
+                   "lm_head_loss": head_loss, "training_loop": loop,
                    "build_logs": _build.build_logs}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

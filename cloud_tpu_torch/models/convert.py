@@ -72,51 +72,69 @@ def params_from_flax(params):
             for k, v in state.items()}
 
 
+def _jax_path(name, leaf_of):
+    """The JAX parameter path of a port parameter `name`, the module
+    path mapped as the converters map it (`blocks.i` -> `block_i`) and
+    the leaf named by `leaf_of(module, leaf)`."""
+    parts = name.split(".")
+    if parts[0] in ("embed", "pos_embed") and parts[1:] == ["weight"]:
+        return parts[0] + "/embedding"
+    if parts[0] == "blocks":
+        path = ["block_" + parts[1]] + parts[2:-1]
+    else:
+        path = parts[:-1]
+    jax_leaf = leaf_of(path[-1] if path else "", parts[-1])
+    if jax_leaf is None:
+        raise ValueError("unmapped parameter {}".format(name))
+    return "/".join(path + [jax_leaf])
+
+
+def _transformer_leaf(module, leaf):
+    if module == "moe" and leaf in _SWITCH_LEAVES:
+        return leaf
+    if module.startswith("ln_"):
+        return {"weight": "scale", "bias": "bias"}.get(leaf)
+    if module in ("query", "key", "value", "out", "mlp_in", "mlp_out"):
+        return {"weight": "kernel", "bias": "bias"}.get(leaf)
+    if module == "lm_head" and leaf == "weight":
+        return "kernel"
+    return None
+
+
+def transformer_param_path(name):
+    """The JAX `TransformerLM` path string of the port's parameter
+    `name`, as `trainable=` and sharding rules match it (e.g.
+    "blocks.3.attention.query.weight" -> "block_3/attention/query/kernel",
+    "lm_head.weight" -> "lm_head/kernel")."""
+    return _jax_path(name, _transformer_leaf)
+
+
 def params_to_flax(state_dict, num_heads):
     """The inverse of `params_from_flax`: a port `TransformerLM` state
     dict (tensors on any device) -> the JAX model's nested "params" dict
     of float32 numpy arrays. `num_heads` restores the [d, H, hd] /
     [H, hd, d] attention kernels. Raises on any key it does not map."""
     params = {}
-
-    def put(path, value):
-        node = params
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-
     for name, tensor in state_dict.items():
         arr = tensor.detach().to("cpu", torch.float32).numpy().copy()
-        parts = name.split(".")
-        if parts[0] in ("embed", "pos_embed") and parts[1:] == ["weight"]:
-            put((parts[0], "embedding"), arr)
-            continue
-        if parts[0] == "blocks":
-            path = ("block_" + parts[1],) + tuple(parts[2:-1])
-        else:
-            path = tuple(parts[:-1])
-        leaf = parts[-1]
-        module = path[-1]
-        if module == "moe" and leaf in _SWITCH_LEAVES:
-            put(path + (leaf,), arr)
-        elif module.startswith("ln_"):
-            put(path + ({"weight": "scale", "bias": "bias"}[leaf],), arr)
-        elif module in ("query", "key", "value"):
-            if leaf == "weight":
-                put(path + ("kernel",),
-                    arr.T.reshape(arr.shape[1], num_heads, -1))
-            else:
-                put(path + ("bias",), arr.reshape(num_heads, -1))
-        elif module == "out" and leaf == "weight":
-            put(path + ("kernel",), arr.T.reshape(num_heads, -1,
-                                                  arr.shape[0]))
-        elif module in ("out", "mlp_in", "mlp_out") and leaf == "bias":
-            put(path + ("bias",), arr)
-        elif module in ("mlp_in", "mlp_out", "lm_head") and leaf == "weight":
-            put(path + ("kernel",), arr.T)
-        else:
-            raise ValueError("unmapped parameter {}".format(name))
+        path = transformer_param_path(name).split("/")
+        module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+        if module in ("query", "key", "value"):
+            arr = (arr.T.reshape(arr.shape[1], num_heads, -1)
+                   if leaf == "kernel" else arr.reshape(num_heads, -1))
+        elif module == "out" and leaf == "kernel":
+            arr = arr.T.reshape(num_heads, -1, arr.shape[0])
+        elif leaf == "kernel":
+            arr = arr.T
+        _put(params, path, arr)
     return {k: _contiguous(v) for k, v in params.items()}
+
+
+def _put(tree, path, value):
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
 
 
 def _contiguous(tree):
@@ -179,6 +197,25 @@ def llama_params_from_flax(params):
             for k, v in state.items()}
 
 
+def _llama_leaf(module, leaf):
+    if module == "moe" and leaf in _TOPK_LEAVES:
+        return leaf
+    if module in _LLAMA_NORMS and leaf == "weight":
+        return "scale"
+    if module in ("query", "key", "value"):
+        return {"weight": "kernel", "bias": "bias"}.get(leaf)
+    if module in ("out", "gate", "up", "down", "lm_head") and \
+            leaf == "weight":
+        return "kernel"
+    return None
+
+
+def llama_param_path(name):
+    """The JAX `LlamaLM` path string of the port's parameter `name`
+    (e.g. "blocks.0.mlp.gate.weight" -> "block_0/mlp/gate/kernel")."""
+    return _jax_path(name, _llama_leaf)
+
+
 def llama_params_to_flax(state_dict, num_heads, num_kv_heads=None):
     """The inverse of `llama_params_from_flax`: a port `LlamaLM` state
     dict (tensors on any device) -> the JAX model's nested "params" dict
@@ -189,43 +226,22 @@ def llama_params_to_flax(state_dict, num_heads, num_kv_heads=None):
     heads = {"query": num_heads, "key": num_kv_heads,
              "value": num_kv_heads}
     params = {}
-
-    def put(path, value):
-        node = params
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-
     for name, tensor in state_dict.items():
         arr = tensor.detach().to("cpu", torch.float32).numpy().copy()
-        parts = name.split(".")
-        if parts == ["embed", "weight"]:
-            put(("embed", "embedding"), arr)
-            continue
-        if parts[0] == "blocks":
-            path = ("block_" + parts[1],) + tuple(parts[2:-1])
-        else:
-            path = tuple(parts[:-1])
-        leaf = parts[-1]
-        module = path[-1] if path else ""
-        if module == "moe" and leaf in _TOPK_LEAVES:
-            put(path + (leaf,), arr)
-        elif module in _LLAMA_NORMS and leaf == "weight":
-            put(path + ("scale",), arr)
-        elif module in heads and leaf == "weight":
-            put(path + ("kernel",),
-                arr.T.reshape(arr.shape[1], heads[module], -1))
-        elif module in heads and leaf == "bias":
-            put(path + ("bias",), arr.reshape(heads[module], -1))
-        elif module == "out" and leaf == "weight":
-            put(path + ("kernel",), arr.T.reshape(num_heads, -1,
-                                                  arr.shape[0]))
-        elif module in ("gate", "up", "down", "lm_head") and leaf == "weight":
-            put(path + ("kernel",), arr.T)
-        else:
-            raise ValueError("unmapped parameter {}".format(name))
+        path = llama_param_path(name).split("/")
+        module, leaf = (path[-2] if len(path) > 1 else ""), path[-1]
+        if module in heads:
+            arr = (arr.T.reshape(arr.shape[1], heads[module], -1)
+                   if leaf == "kernel" else
+                   arr.reshape(heads[module], -1))
+        elif module == "out" and leaf == "kernel":
+            arr = arr.T.reshape(num_heads, -1, arr.shape[0])
+        elif leaf == "kernel":
+            arr = arr.T
+        _put(params, path, arr)
     return {k: _contiguous(v) for k, v in params.items()}
 
 
-__all__ = ["llama_params_from_flax", "llama_params_to_flax",
-           "params_from_flax", "params_to_flax"]
+__all__ = ["llama_param_path", "llama_params_from_flax",
+           "llama_params_to_flax", "params_from_flax", "params_to_flax",
+           "transformer_param_path"]

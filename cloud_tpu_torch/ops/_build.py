@@ -32,6 +32,13 @@ _libs = {}
 build_logs = {}
 #: Seconds each of those builds took (they run side by side).
 build_seconds = {}
+_builds = [0]  # nvcc runs by this process
+
+
+def build_count():
+    """How many sources this process has compiled with nvcc (a resumed
+    fit reads it before and after re-entry)."""
+    return _builds[0]
 
 
 def nvcc_path():
@@ -95,6 +102,7 @@ def build(names):
         waiter.start()
     for waiter in waiters:
         waiter.join()
+    _builds[0] += len(procs)
     failed = []
     for name, (proc, tmp, path) in procs.items():
         output = build_logs[name]
@@ -127,5 +135,6 @@ def check(err, what):
         raise RuntimeError("{} failed: cudaError_t {}".format(what, err))
 
 
-__all__ = ["BUILD_DIR", "build", "build_logs", "build_seconds", "check",
+__all__ = ["BUILD_DIR", "build", "build_count", "build_logs",
+           "build_seconds", "check",
            "headers", "load", "library_path", "sources"]

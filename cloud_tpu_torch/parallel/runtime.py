@@ -36,6 +36,15 @@ def resolve_device(device=None):
     return device
 
 
+def process_index():
+    """This process's index in a multi-process job: the rank of an
+    initialised `torch.distributed` group, else 0."""
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        return int(torch.distributed.get_rank())
+    return 0
+
+
 def set_phase(name):
     """Sets this thread's phase label; returns the previous label."""
     previous = getattr(_phase, "name", None)
@@ -98,6 +107,6 @@ def reset_transfer_stats():
             _transfer_stats[key] = 0
 
 
-__all__ = ["default_device", "device_fetch",
+__all__ = ["default_device", "device_fetch", "process_index",
            "record_d2h", "reset_transfer_stats", "resolve_device",
            "set_phase", "transfer_stats"]

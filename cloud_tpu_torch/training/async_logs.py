@@ -1,0 +1,268 @@
+"""The async host loop: off-thread metric readback with lazy logs.
+
+The port of `cloud_tpu/training/async_logs.py`. The fit loop's steady
+state must not block on the device for its metrics; this module moves
+the epoch's device->host read off the training thread. Three pieces:
+
+- `MetricFuture`: the handle the train loop gets back immediately when
+  it hands an epoch's device-scalar logs off for readback. `result()`
+  blocks until the background fetch lands (or re-raises the fetch
+  error); `done()` never blocks.
+- `AsyncMetricReader`: a bounded-queue background thread that performs
+  the actual fetch — ONE coalesced `runtime.device_fetch` per
+  submitted pytree (one device round trip per logging interval, the
+  counted invariant), then `float()`s the already-host leaves for
+  free. The queue is bounded so a slow host can exert backpressure
+  instead of accumulating device log buffers; errors are re-raised on
+  the submitting thread at the NEXT boundary (`submit` raises) and on
+  `result()`, so a poisoned fetch can't be silently dropped.
+- `LazyLogs`: the dict handed to callbacks. Host-side entries
+  (steps_per_sec, val_* floats) are ordinary items; device-metric
+  entries stay PENDING until something actually reads one — then the
+  whole future resolves at once (it was one coalesced fetch; there is
+  no per-key laziness to exploit). Callbacks that only write
+  (`logs["lr"] = ...`) or never touch device keys never wait at all.
+
+Why floats and not 0-d numpy: every existing consumer (History lists,
+EarlyStopping comparisons, MetricsLogger's json.dumps) expects plain
+Python floats, and `float()` on an already-fetched numpy scalar is
+free — the laziness lives in the fetch, not the conversion.
+"""
+
+import queue
+import threading
+
+from cloud_tpu_torch.parallel import runtime
+
+__all__ = ["MetricFuture", "AsyncMetricReader", "LazyLogs"]
+
+
+class MetricFuture:
+    """A one-shot future for a fetched metrics dict.
+
+    Deliberately tiny (not concurrent.futures.Future): no
+    cancellation, no callbacks racing the resolver — just an Event and
+    a slot, because the reader thread is the only writer and the train
+    loop the only reader.
+    """
+
+    __slots__ = ("_event", "_value", "_error")
+
+    def __init__(self):
+        self._event = threading.Event()
+        self._value = None
+        self._error = None
+
+    def set_result(self, value):
+        self._value = value
+        self._event.set()
+
+    def set_exception(self, exc):
+        self._error = exc
+        self._event.set()
+
+    def done(self):
+        return self._event.is_set()
+
+    def result(self, timeout=None):
+        """The fetched `{name: float}` dict; re-raises the fetch error.
+
+        `timeout` only bounds the wait for the background fetch; the
+        default (None) waits forever, which is correct for the train
+        loop — the fetch is already in flight and the device will
+        answer or error.
+        """
+        if not self._event.wait(timeout):
+            raise TimeoutError("metric fetch did not complete within "
+                               "{}s".format(timeout))
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+# Queue depth 2: the fetch for epoch N overlaps training of epoch N+1,
+# and one more slot absorbs jitter. Deeper would let a wedged device
+# hide arbitrarily many unfetched epochs before backpressure surfaces
+# it; shallower (1) would serialize submit against the in-flight fetch.
+_QUEUE_DEPTH = 2
+
+_CLOSE = object()   # sentinel: reader thread exits after draining
+
+
+class AsyncMetricReader:
+    """Background device->host reader with a bounded queue of futures.
+
+    `submit(device_logs)` enqueues one pytree of device scalars and
+    returns a `MetricFuture` immediately; the daemon thread performs
+    ONE `runtime.device_fetch` per submission (the counted one-round-
+    trip-per-interval invariant) and resolves the future with
+    `{name: float}`. If a previous fetch errored, the error re-raises
+    here — on the submitting (train) thread, at the next boundary —
+    as well as on that future's `result()`.
+    """
+
+    def __init__(self, maxsize=_QUEUE_DEPTH):
+        self._queue = queue.Queue(maxsize=maxsize)
+        self._thread = None
+        self._lock = threading.Lock()
+        self._pending_error = None
+
+    def _ensure_thread(self):
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, name="cloud-tpu-torch-metric-reader",
+                    daemon=True)
+                self._thread.start()
+
+    def _run(self):
+        # Label this thread: fetches here are the sanctioned off-thread
+        # readback, not step-loop syncs.
+        runtime.set_phase("async_reader")
+        while True:
+            item = self._queue.get()
+            if item is _CLOSE:
+                return
+            device_logs, future = item
+            try:
+                host = runtime.device_fetch(device_logs)
+                future.set_result({k: float(v)
+                                   for k, v in host.items()})
+            except BaseException as exc:  # propagate, never swallow
+                future.set_exception(exc)
+                with self._lock:
+                    if self._pending_error is None:
+                        self._pending_error = exc
+
+    def submit(self, device_logs):
+        """Enqueue one logging interval's device scalars; returns a
+        MetricFuture. Raises a PREVIOUS interval's fetch error if one
+        is pending — the poisoned-fetch propagation boundary."""
+        with self._lock:
+            err, self._pending_error = self._pending_error, None
+        if err is not None:
+            raise err
+        self._ensure_thread()
+        future = MetricFuture()
+        self._queue.put((device_logs, future))
+        return future
+
+    def drain(self):
+        """Blocks until every submitted fetch has resolved.
+
+        Drains via a marker submission: the FIFO queue guarantees the
+        marker resolves only after everything ahead of it (polling
+        queue emptiness would race the in-flight fetch).
+        """
+        marker = MetricFuture()
+        self._ensure_thread()
+        self._queue.put(({}, marker))
+        marker.result()
+
+    def close(self):
+        """Stops the reader thread after the queue drains. Idempotent;
+        a closed reader restarts lazily on the next submit."""
+        with self._lock:
+            thread = self._thread
+        if thread is None or not thread.is_alive():
+            return
+        self._queue.put(_CLOSE)
+        thread.join()
+
+
+class LazyLogs(dict):
+    """The callback-facing logs dict: host items eager, device items
+    pending until first read.
+
+    Construction takes the `MetricFuture` for the interval's device
+    metrics (plus their key names, so membership tests don't force the
+    fetch) and any already-host items. Reads of a pending key —
+    `logs["loss"]`, `logs.get`, `items()`, iteration, `len`, `in` on a
+    resolved-away key — resolve the WHOLE future (it was one coalesced
+    fetch). Writes never resolve: `logs["lr"] = 0.1` is what schedule
+    callbacks do every epoch and must stay free. A callback that
+    overwrites a pending key before anything read it wins — resolution
+    fills via `setdefault`, preserving the Keras contract that later
+    callbacks see earlier callbacks' mutations.
+    """
+
+    def __init__(self, future=None, device_keys=(), host_items=None):
+        super().__init__(host_items or {})
+        self._future = future
+        self._device_keys = tuple(device_keys)
+
+    def _resolve(self):
+        future, self._future = self._future, None
+        if future is None:
+            return
+        for key, value in future.result().items():
+            # setdefault: a pre-resolution callback write wins.
+            self.setdefault(key, value)
+        self._device_keys = ()
+
+    def pending_keys(self):
+        """Device-metric names not yet materialized (non-resolving)."""
+        if self._future is None:
+            return ()
+        return tuple(k for k in self._device_keys
+                     if not dict.__contains__(self, k))
+
+    def __missing__(self, key):
+        if self._future is not None:
+            self._resolve()
+            if dict.__contains__(self, key):
+                return dict.__getitem__(self, key)
+        raise KeyError(key)
+
+    def __contains__(self, key):
+        return dict.__contains__(self, key) or key in self.pending_keys()
+
+    def get(self, key, default=None):
+        if dict.__contains__(self, key):
+            return dict.__getitem__(self, key)
+        if key in self.pending_keys():
+            self._resolve()
+            return dict.get(self, key, default)
+        return default
+
+    def __len__(self):
+        return dict.__len__(self) + len(self.pending_keys())
+
+    def __iter__(self):
+        self._resolve()
+        return dict.__iter__(self)
+
+    def keys(self):
+        self._resolve()
+        return dict.keys(self)
+
+    def values(self):
+        self._resolve()
+        return dict.values(self)
+
+    def items(self):
+        self._resolve()
+        return dict.items(self)
+
+    def __eq__(self, other):
+        self._resolve()
+        return dict.__eq__(self, other)
+
+    def __ne__(self, other):
+        result = self.__eq__(other)
+        return result if result is NotImplemented else not result
+
+    __hash__ = None
+
+    def copy(self):
+        self._resolve()
+        return dict(dict.items(self))
+
+    def __repr__(self):
+        # repr must NOT force the fetch (progress/debug printing of a
+        # still-pending logs dict would defeat the laziness).
+        pending = self.pending_keys()
+        if pending:
+            return "LazyLogs({}, pending={})".format(
+                dict.__repr__(self), list(pending))
+        return dict.__repr__(self)

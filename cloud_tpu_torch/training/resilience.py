@@ -1,0 +1,472 @@
+"""graftguard: elastic, preemption-native training.
+
+The port of `cloud_tpu/training/resilience.py`: the typed fault
+taxonomy, capped and jittered backoff, `AutoCheckpoint`, the guard
+counters and `resilient_fit`, which `Trainer.fit(resume="auto")`
+delegates to:
+
+1. runs `Trainer._fit_impl` with `resume_from` pointed at a checkpoint
+   directory and an `AutoCheckpoint` callback stamping the resumable
+   data-stream position (`(epoch, step_in_epoch, dataset_epoch,
+   data_seed)`) into every save's sidecar;
+2. on a typed fault: records it (the module's counters and a
+   "graftguard" JSONL job event), takes a rescue checkpoint of the live
+   state (faults are raised between steps, so the state is a
+   consistent post-step snapshot), quarantines the offending
+   checkpoint instead when the fault is the checkpoint
+   (`CheckpointCorrupt`: fall back to the previous one), and skips the
+   rescue on `NaNLoss` (the live state is the non-finite one: resume
+   from the last finite checkpoint with a fresh data-order seed);
+3. backs off (capped exponential with jitter, budgeted by
+   `CLOUD_TPU_RETRIES`) and re-enters. Re-entry restores the latest
+   checkpoint and re-bases the shuffle stream to its mid-epoch position
+   (`Trainer._apply_data_state`); the first step after it reports the
+   resume latency and the kernel builds since the fault
+   (`ops._build`), 0 when the kernels were already loaded.
+
+Knobs, the JAX package's environment names: `CLOUD_TPU_RETRIES` (retry
+budget, default 3), `CLOUD_TPU_RETRY_BACKOFF` (base seconds, default
+1.0), `CLOUD_TPU_RETRY_BACKOFF_CAP` (default 30.0),
+`CLOUD_TPU_RESUME_DIR` (checkpoint directory when the caller gives
+none). The deterministic fault injector is `analysis/chaos.py`
+(`CLOUD_TPU_CHAOS`). The port has no watchdog yet (ROADMAP item 8), so
+`BackendUnavailable` is not among the faults caught.
+"""
+
+import logging
+import os
+import random
+import time
+
+from cloud_tpu_torch.ops import _build
+from cloud_tpu_torch.training import callbacks as callbacks_lib
+
+logger = logging.getLogger("cloud_tpu_torch")
+
+
+# --------------------------------------------------------------------------
+# Typed fault taxonomy
+# --------------------------------------------------------------------------
+
+
+class TrainingFault(RuntimeError):
+    """Base of graftguard's fault taxonomy: an interruption the
+    supervising retry loop knows how to answer (checkpoint, back off,
+    resume) — as opposed to a programming error, which propagates."""
+
+    fault_kind = "training_fault"
+
+
+class Preemption(TrainingFault):
+    """The host is being reclaimed (spot/preemptible capacity) — the
+    SIGTERM-grace-window class of interruption. Checkpoint and resume
+    on a replacement."""
+
+    fault_kind = "preemption"
+
+
+class CheckpointCorrupt(TrainingFault):
+    """A checkpoint failed its content digest or would not deserialize
+    — a torn write, a truncated object, bit rot. graftguard quarantines
+    the step and falls back to the previous checkpoint."""
+
+    fault_kind = "checkpoint_corrupt"
+
+    def __init__(self, message, path=None, step=None):
+        super().__init__(message)
+        self.path = path
+        self.step = step
+
+
+class DataStall(TrainingFault):
+    """The input pipeline stopped producing (transient fetch error,
+    wedged remote read). Usually transient: retry re-enters the same
+    position."""
+
+    fault_kind = "data_stall"
+
+
+class NaNLoss(TrainingFault):
+    """The monitored loss went non-finite (`TerminateOnNaN`
+    rollback=True). graftguard resumes from the last FINITE checkpoint
+    with a fresh data-order rng — same params, different batch
+    sequence."""
+
+    fault_kind = "nan_loss"
+
+    def __init__(self, message, epoch=None, monitor=None, value=None):
+        super().__init__(message)
+        self.epoch = epoch
+        self.monitor = monitor
+        self.value = value
+
+
+#: Everything the supervising loop catches.
+FAULT_TYPES = (TrainingFault,)
+
+
+def fault_kind(exc):
+    """The taxonomy label for a caught fault ("preemption", "nan_loss",
+    ...), or "unknown" for anything else."""
+    return getattr(type(exc), "fault_kind", "unknown")
+
+
+# --------------------------------------------------------------------------
+# Stats / telemetry / events
+# --------------------------------------------------------------------------
+
+_STATS_ZERO = {
+    "faults": 0,
+    "retries": 0,
+    "rollbacks": 0,
+    "giveups": 0,
+    "resumes": 0,
+    "last_fault": None,
+    "last_resume_latency_seconds": None,
+    "last_resume_new_traces": None,
+    "last_resume_new_compiles": None,
+}
+_stats = dict(_STATS_ZERO)
+
+
+def guard_stats():
+    """Snapshot of the process-wide graftguard counters — the
+    telemetry-free introspection point (tests, bench records)."""
+    return dict(_stats)
+
+
+def reset_guard_stats():
+    """Zeroes the counters (test isolation)."""
+    _stats.update(_STATS_ZERO)
+
+
+class _GuardScope:
+    """Snapshot/delta view over the process-global guard counters —
+    see `guard_scope()`."""
+
+    _COUNTERS = ("faults", "retries", "rollbacks", "giveups", "resumes")
+    _LAST_RESUME = ("last_resume_latency_seconds",
+                    "last_resume_new_traces",
+                    "last_resume_new_compiles")
+
+    def __init__(self):
+        self._base = None
+        self._final = None
+
+    def __enter__(self):
+        self._base = guard_stats()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._final = guard_stats()
+        return False
+
+    def stats(self):
+        """The delta accrued inside the scope: integer counters as
+        differences; `last_fault` / `last_resume_*` only when this
+        scope saw a fault / resume (else None — a previous scope's
+        leftovers never leak in). Valid mid-scope (live delta) and
+        after exit (frozen at `__exit__`)."""
+        if self._base is None:
+            raise RuntimeError("guard_scope stats read before entry.")
+        end = self._final if self._final is not None else guard_stats()
+        out = {key: end[key] - self._base[key] for key in self._COUNTERS}
+        out["last_fault"] = end["last_fault"] if out["faults"] else None
+        for key in self._LAST_RESUME:
+            out[key] = end[key] if out["resumes"] else None
+        return out
+
+
+def guard_scope():
+    """Context manager scoping `guard_stats()` to one supervised run.
+
+    The module-global counters are process-wide by design (telemetry,
+    bench records); anything running MANY supervised fits in one
+    process — a graftsweep trial, a test — needs per-run attribution.
+    `with guard_scope() as guard:` snapshots on entry and `guard.stats()`
+    returns only what accrued inside the scope, so trial K's faults
+    never bleed into trial K+1's census. Nestable (each scope deltas
+    independently); never resets the globals."""
+    return _GuardScope()
+
+
+def _log_event(payload):
+    # JSONL job event (no-op unless CLOUD_TPU_EVENT_LOG is set): the
+    # fleet-side record of every fault/retry/resume, same stream the
+    # watchdog and chaos harness write to.
+    try:
+        from cloud_tpu_torch.utils import events
+
+        events.log_job_event("graftguard", payload)
+    except Exception:
+        logger.debug("graftguard: job event export failed", exc_info=True)
+
+
+# --------------------------------------------------------------------------
+# Backoff
+# --------------------------------------------------------------------------
+
+
+def _env_float(name, default):
+    value = os.environ.get(name)
+    if value is None:
+        return default
+    try:
+        return float(value)
+    except ValueError:
+        logger.warning("Ignoring malformed %s=%r.", name, value)
+        return default
+
+
+def backoff_delay(attempt, base=1.0, cap=30.0, rng=None):
+    """Capped exponential backoff with jitter, seconds.
+
+    attempt 0 → ~base, attempt k → min(cap, base * 2**k), each scaled
+    by a uniform [0.5, 1.0) jitter so a preempted fleet doesn't
+    thunder back in lockstep. Pass an explicit `random.Random` for
+    deterministic tests.
+    """
+    if rng is None:
+        rng = random
+    # 2.0**attempt overflows a float past attempt 1023; any exponent
+    # beyond 64 is already astronomically over every sane cap.
+    raw = min(float(cap), float(base) * (2.0 ** min(int(attempt), 64)))
+    return raw * (0.5 + 0.5 * rng.random())
+
+
+# --------------------------------------------------------------------------
+# Resume probe: latency + the zero-new-compiles invariant
+# --------------------------------------------------------------------------
+
+
+class _ResumeProbe:
+    """Armed by the retry loop right before re-entry; the fit loop fires
+    it after the first completed step. Measures the resume latency
+    (restore + rebuild + first step) and the kernel builds since the
+    fault (`ops._build.build_count`): a re-entry in the same process
+    reuses the loaded kernels and reports 0. Nothing is traced in the
+    port, so `new_traces` stays None."""
+
+    def __init__(self, kind, attempt):
+        self.kind = kind
+        self.attempt = attempt
+        self.t0 = time.monotonic()
+        self.baseline = _build.build_count()
+
+    def first_step(self):
+        latency = time.monotonic() - self.t0
+        new_compiles = _build.build_count() - self.baseline
+        _stats["resumes"] += 1
+        _stats["last_resume_latency_seconds"] = latency
+        _stats["last_resume_new_compiles"] = new_compiles
+        _log_event({
+            "event": "resumed",
+            "fault": self.kind,
+            "attempt": self.attempt,
+            "resume_latency_seconds": round(latency, 6),
+            "new_compiles": new_compiles,
+        })
+        logger.info("graftguard: resumed after %s in %.3fs (new kernel "
+                    "builds=%d).", self.kind, latency, new_compiles)
+
+
+# --------------------------------------------------------------------------
+# Auto-checkpoint callback
+# --------------------------------------------------------------------------
+
+
+class AutoCheckpoint(callbacks_lib.Callback):
+    """Epoch-granular graftguard checkpoints with the resumable
+    data-stream position stamped into the metadata sidecar.
+
+    Unlike `ModelCheckpoint` this is unconditional (no monitor/mode):
+    its job is recovery, not best-model selection, so every epoch end
+    writes `<directory>/<global step>` plus `data_state` metadata.
+    Earlier steps are kept — `CheckpointCorrupt` fallback needs a
+    previous checkpoint to fall back TO.
+    """
+
+    def __init__(self, directory, use_async=False):
+        self.directory = directory
+        self.use_async = bool(use_async)
+
+    def on_epoch_end(self, epoch, logs):
+        trainer = self.trainer
+        if trainer is None or trainer.state is None:
+            return
+        from cloud_tpu_torch.training import checkpoint as checkpoint_lib
+
+        checkpoint_lib.save(
+            self.directory, trainer.state,
+            step=int(trainer.state.step),
+            use_async=self.use_async,
+            data_state=trainer.current_data_state())
+
+    def on_train_end(self, history):
+        if self.use_async:
+            from cloud_tpu_torch.training import checkpoint as checkpoint_lib
+
+            checkpoint_lib.wait_until_finished()
+
+
+# --------------------------------------------------------------------------
+# The supervising retry loop
+# --------------------------------------------------------------------------
+
+
+def _rescue_save(trainer, directory):
+    """Best-effort checkpoint of the live state at fault time.
+
+    The taxonomy raises between steps, so `trainer.state` is a
+    consistent post-step snapshot: saving it means resume replays
+    nothing. A failure here (a lost device, a full disk) is logged, and
+    resume falls back to the last periodic checkpoint.
+    """
+    state = getattr(trainer, "state", None)
+    if state is None:
+        return None
+    from cloud_tpu_torch.training import checkpoint as checkpoint_lib
+
+    try:
+        step = int(state.step)
+        path = checkpoint_lib.save(
+            directory, state, step=step,
+            data_state=trainer.current_data_state())
+        _log_event({"event": "rescue_checkpoint", "step": step,
+                    "path": str(path)})
+        logger.info("graftguard: rescue checkpoint at step %d -> %s.",
+                    step, path)
+        return path
+    except Exception:
+        logger.warning(
+            "graftguard: rescue checkpoint failed; resume will fall "
+            "back to the last periodic checkpoint.", exc_info=True)
+        return None
+
+
+def resilient_fit(trainer, directory=None, retries=None,
+                  backoff_base=None, backoff_cap=None, rng=None,
+                  **fit_kwargs):
+    """Runs `trainer._fit_impl(**fit_kwargs)` under graftguard.
+
+    This is what `Trainer.fit(resume="auto")` delegates to. Typed
+    faults (`FAULT_TYPES`) are caught, answered (rescue checkpoint /
+    quarantine / fresh data rng — see the module docstring), and
+    retried with capped exponential backoff until the budget is
+    exhausted, at which point the LAST fault re-raises so outer
+    handlers still see the typed error.
+
+    Args:
+        trainer: The `Trainer`.
+        directory: Checkpoint root. Defaults to `resume_from` in
+            `fit_kwargs`, then `CLOUD_TPU_RESUME_DIR`, then
+            `./graftguard_ckpt`.
+        retries: Retry budget; default `CLOUD_TPU_RETRIES` (3).
+        backoff_base / backoff_cap: Backoff shape, seconds; defaults
+            `CLOUD_TPU_RETRY_BACKOFF` (1.0) /
+            `CLOUD_TPU_RETRY_BACKOFF_CAP` (30.0).
+        rng: Optional `random.Random` for deterministic backoff jitter.
+        **fit_kwargs: Forwarded to `Trainer._fit_impl`.
+
+    Returns:
+        The history dict, accumulated ACROSS attempts (each re-entry
+        appends to the same dict, so the caller sees one continuous
+        per-epoch stream).
+    """
+    from cloud_tpu_torch.training import checkpoint as checkpoint_lib
+
+    if retries is None:
+        retries = int(_env_float("CLOUD_TPU_RETRIES", 3))
+    if backoff_base is None:
+        backoff_base = _env_float("CLOUD_TPU_RETRY_BACKOFF", 1.0)
+    if backoff_cap is None:
+        backoff_cap = _env_float("CLOUD_TPU_RETRY_BACKOFF_CAP", 30.0)
+
+    fit_kwargs = dict(fit_kwargs)
+    directory = (directory or fit_kwargs.get("resume_from")
+                 or os.environ.get("CLOUD_TPU_RESUME_DIR"))
+    if directory is None:
+        directory = os.path.join(os.getcwd(), "graftguard_ckpt")
+        logger.info(
+            "graftguard: no checkpoint directory given "
+            "(resume_from / CLOUD_TPU_RESUME_DIR); using %s.", directory)
+    fit_kwargs["resume_from"] = directory
+
+    callbacks = list(fit_kwargs.get("callbacks") or ())
+    if not any(isinstance(cb, AutoCheckpoint) for cb in callbacks):
+        callbacks.append(AutoCheckpoint(directory))
+    fit_kwargs["callbacks"] = tuple(callbacks)
+
+    # One history dict threaded through every attempt: _fit_impl's
+    # finally-barrier materializes even a partial epoch's logs into it
+    # before the fault propagates, so nothing is lost to a retry.
+    history = fit_kwargs.pop("history", None)
+    if history is None:
+        history = {}
+    data_seed = fit_kwargs.pop("data_seed", None)
+
+    attempt = 0
+    while True:
+        try:
+            trainer._fit_impl(history=history, data_seed=data_seed,
+                              **fit_kwargs)
+            return history
+        except FAULT_TYPES as fault:
+            kind = fault_kind(fault)
+            _stats["faults"] += 1
+            _stats["last_fault"] = kind
+            _log_event({"event": "fault", "fault": kind,
+                        "attempt": attempt, "error": str(fault)})
+            logger.warning("graftguard: caught %s fault: %s", kind, fault)
+
+            if kind == "checkpoint_corrupt":
+                # The checkpoint IS the fault: quarantine it so
+                # latest_step falls back to the previous one. No
+                # rescue save — the live state never restored.
+                step = getattr(fault, "step", None)
+                quarantined = (checkpoint_lib.quarantine(directory, step)
+                               if step is not None else None)
+                _stats["rollbacks"] += 1
+                _log_event({"event": "rollback", "fault": kind,
+                            "step": step,
+                            "quarantined": quarantined and str(quarantined)})
+            elif kind == "nan_loss":
+                # The live state is the non-finite one: resume from
+                # the last FINITE checkpoint, and re-seed the data
+                # order so the replayed epoch draws a fresh batch
+                # sequence instead of marching back into the NaN.
+                data_seed = int(trainer.seed) + 1000003 * (attempt + 1)
+                _stats["rollbacks"] += 1
+                _log_event({"event": "rollback", "fault": kind,
+                            "fresh_data_seed": data_seed})
+                logger.warning(
+                    "graftguard: non-finite loss; rolling back to the "
+                    "last finite checkpoint with data_seed=%d.", data_seed)
+            else:
+                _rescue_save(trainer, directory)
+
+            attempt += 1
+            if attempt > retries:
+                _stats["giveups"] += 1
+                _log_event({"event": "giveup", "fault": kind,
+                            "attempts": attempt, "budget": retries})
+                logger.error(
+                    "graftguard: retry budget exhausted "
+                    "(%d attempts, budget %d); re-raising %s.",
+                    attempt, retries, kind)
+                raise
+            delay = backoff_delay(attempt - 1, backoff_base,
+                                  backoff_cap, rng=rng)
+            _stats["retries"] += 1
+            _log_event({"event": "retry", "fault": kind,
+                        "attempt": attempt, "budget": retries,
+                        "backoff_seconds": round(delay, 3)})
+            logger.warning(
+                "graftguard: retry %d/%d after %s; backing off %.2fs "
+                "then resuming from %s.", attempt, retries, kind, delay,
+                directory)
+            if delay > 0:
+                time.sleep(delay)
+            # Clock starts AFTER the backoff: resume latency measures
+            # restore + rebuild + first dispatch, not the sleep.
+            trainer._resume_probe = _ResumeProbe(kind, attempt)

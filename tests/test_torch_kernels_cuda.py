@@ -816,3 +816,118 @@ def test_moe_llama_step_and_decode_on_the_card():
     assert tfn.launches["fused_norm"] == norm0 + 2 * 12
     want = generate(cpu, tokens[:, :20], 12, temperature=0.0)
     assert torch.equal(got, want)
+
+
+# -- the training loop on the card ---------------------------------------
+#
+# lm_head_loss on CUDA tensors against its plain version (the materialised
+# f32 logits) on the same values: f32 within 1e-5 (summation order; TF32
+# stays off, PyTorch's default); on bf16 inputs the loss within 1e-5
+# relative + 1e-4 of its rms (f32 in both) and dh, dW within 2^-8
+# relative + 1e-3 rms(row) (their final rounding to bf16).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_head_loss_on_the_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.ops import fused_ce
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, d, v = 512, 256, 5003
+    h = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    w = (0.05 * torch.randn(d, v, generator=gen, device="cuda")).to(dtype)
+    y = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    y[::17] = -1
+    y[3] = v
+
+    def run(fn, cast):
+        hh = cast(h).detach().requires_grad_()
+        ww = cast(w).detach().requires_grad_()
+        loss = fn(hh, ww)
+        return (loss,) + torch.autograd.grad(loss.sum(), (hh, ww))
+
+    got = run(lambda a, b: fused_ce.lm_head_loss(a, b, y, chunk=1024),
+              lambda t: t)
+    want = run(lambda a, b: fused_ce.lm_head_loss_reference(a, b, y),
+               lambda t: t.float())
+    assert got[0].dtype == torch.float32 and got[1].dtype == dtype
+    ignored = (y < 0) | (y >= v)
+    assert (got[0][ignored] == 0).all() and (got[1][ignored] == 0).all()
+    if dtype == torch.float32:
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.detach().cpu(), b.detach().cpu(),
+                                       rtol=1e-5,
+                                       atol=1e-5)
+    else:
+        _close_rows(got[0][None], want[0][None], 1e-5, 1e-4)
+        _close_rows(got[1], want[1], 2.0 ** -8, 1e-3)
+        _close_rows(got[2], want[2], 2.0 ** -8, 1e-3)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_card_tensors(tmp_path):
+    """An async save of CUDA tensors returns with a host snapshot (an
+    in-place update after it does not reach the file); restore puts the
+    values back on the card, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.training import checkpoint as ckpt
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state = {"w": torch.randn(300, 70, generator=gen, device="cuda"),
+             "b": torch.randn(70, generator=gen, device="cuda").bfloat16(),
+             "step": 9}
+    want = {k: (v.clone() if torch.is_tensor(v) else v)
+            for k, v in state.items()}
+    ckpt.save(str(tmp_path), state, step=9, use_async=True)
+    state["w"].add_(1.0)
+    ckpt.wait_until_finished()
+    target = {"w": torch.zeros(300, 70, device="cuda"),
+              "b": torch.zeros(70, device="cuda", dtype=torch.bfloat16),
+              "step": 0}
+    got = ckpt.restore(str(tmp_path), target)
+    assert got["step"] == 9 and got["w"].is_cuda
+    assert torch.equal(got["w"], want["w"]) and torch.equal(got["b"],
+                                                            want["b"])
+
+
+@pytest.mark.cuda
+def test_llama_resume_is_bitwise_on_the_card(tmp_path):
+    """A 2-layer bf16 `LlamaLM` (flash, fused norm and fused MLP
+    kernels) preempted before step 6 of 12 and resumed under
+    `fit(resume="auto")` ends bit for bit where the uninterrupted fit
+    does, EMA shadow included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cloud_tpu_torch.analysis import chaos
+    from cloud_tpu_torch.models import LlamaLM
+    from cloud_tpu_torch.training import Trainer, resilience
+
+    cfg = dict(vocab_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+               d_model=256, d_ff=688, max_seq_len=128,
+               compute_dtype=torch.bfloat16)
+    tokens = np.random.default_rng(5).integers(0, 256, size=(16, 65))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+
+    def fit(**kw):
+        model = LlamaLM(device="cuda", seed=2, **cfg)
+        trainer = Trainer(model, optimizer="adamw", seed=1, ema_decay=0.9)
+        trainer.fit(x, y, epochs=3, batch_size=4, verbose=False, **kw)
+        return trainer
+
+    clean = fit()
+    chaos.install("preempt@6")
+    try:
+        resumed = fit(resume="auto", retries=1,
+                      resume_from=str(tmp_path / "ckpt"))
+    finally:
+        chaos.uninstall()
+    assert resilience.guard_stats()["resumes"] >= 1
+    assert resumed.state.step == clean.state.step == 12
+    for (name, a), (_, b) in zip(clean.model.named_parameters(),
+                                 resumed.model.named_parameters()):
+        assert torch.equal(a, b), name
+        assert torch.equal(clean.ema_params[name],
+                           resumed.ema_params[name]), name

@@ -191,20 +191,27 @@ def test_schedule_through_make_optimizer_matches_jax():
 
 
 def test_unported_options_raise():
+    """Only the options still to port raise, each naming its ROADMAP
+    item (EMA, trainable and callbacks work since the training-loop
+    slice: tests/test_torch_callbacks.py, test_torch_checkpoint.py)."""
     model = torch.nn.Linear(2, 2)
-    for kw in (dict(zero1=True), dict(ema_decay=0.9),
-               dict(steps_per_execution=2), dict(trainable="x"),
-               dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw, item in ((dict(zero1=True), 6), (dict(fsdp=True), 6),
+                     (dict(mesh=object()), 6),
+                     (dict(param_sharding_rules=()), 6),
+                     (dict(steps_per_execution=2), 2),
+                     (dict(remat=True), 2)):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*item {}".format(item)):
             ttrainer.Trainer(model, **kw)
     with pytest.raises(NotImplementedError, match="eps inside"):
         ttrainer.OPTIMIZERS["rmsprop"]([torch.nn.Parameter(torch.zeros(1))])
     trainer = ttrainer.Trainer(model, loss="mse", metrics=())
     x = np.zeros((4, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="callbacks"):
-        trainer.fit(x, x, callbacks=[object()])
-    with pytest.raises(NotImplementedError, match="cache"):
-        trainer.fit(x, x, cache="device")
+    for kw, item in ((dict(cache="device"), 4), (dict(input_cast="uint8"), 4),
+                     (dict(warm_start=True), 2)):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*item {}".format(item)):
+            trainer.fit(x, x, **kw)
 
 
 # -- the slice as a whole ----------------------------------------------
@@ -339,7 +346,7 @@ def test_weighted_fit_and_accumulation_match_jax():
         params_to_flax(tm.state_dict(), 4)["lm_head"]["kernel"],
         np.asarray(jt.state.params["lm_head"]["kernel"]), rtol=1e-5,
         atol=1e-5)
-    assert tt.state.step == 4 and tt._updates == 2
+    assert tt.state.step == 4 and tt.state.updates == 2
 
 
 def test_moe_fit_adds_the_aux_loss_as_jax_does():
