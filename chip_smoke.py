@@ -37,7 +37,9 @@ then:
    attention (B 2, S 2048, H 32, H_kv 4, D 128); and head_dims past 256
    on the wide kernels: DeepSeek-V4-Flash's dense attention (B 1, S
    2048, 64 heads over 1 KV head, D 512), D 264, D 320 with window,
-   softcap and key mask, D 576 over one KV head and f32 D 320; then
+   softcap and key mask, D 576 over one KV head and f32 D 320; and
+   ViT-B/16's attention at phase 11's shape (B 256, S 197, H 12, D 64,
+   non-causal); then
    times each kernel at the GPT-2, the TinyLlama, the Gemma-2, the
    Phi-3-mini, the phi-2, the Qwen3-30B-A3B and the DeepSeek-V4-Flash
    shapes beside its bound,
@@ -127,7 +129,32 @@ then:
    parameters bit-equal, AdamW state for the trained ones alone; and
    the checkpoint's bytes, sync and async save and restore seconds.
    The checkpoints live under `build/chip_smoke_ckpt/` and are removed;
-11. prints the kernel table as one JSON line (one row per kernel and
+11. trains the image families through `Trainer.fit` (every number
+   printed beside the card's name and power limit): (a) MNIST's
+   `MLP(hidden=512)` and `ConvNet` on class-template 28 x 28 images:
+   held-out accuracy gates, the MLP fit at steps_per_execution 1 and 16
+   bit-equal (the CUDA graph route against eager steps) with steps/s of
+   both, `cache="device"` with `input_cast="uint8"` moving no h2d byte
+   after its upload with the host-fed fit's history, the streaming
+   datasets and `prefetch_to_device` giving the array fit's history, and
+   each of the eight optimizers' 20 f32 steps against the same steps on
+   the CPU; (b) ResNet-50 at full width (stages 3-4-6-3, 1000 classes,
+   224 x 224) at bench.py's operating point (batch 256, bf16, SGD 0.1
+   momentum 0.9, resident data, bf16 input cast, steps_per_execution 5,
+   warm start) on class-template images over 10 of the 1000 classes:
+   the first step's latency with and without a warm start (no counter
+   moving on step 1 after it), the held-out accuracy gate,
+   `evaluate`/`predict` with train=False, step p50, images/s, MFU from
+   the convolutions' and the head's shapes, busy share and kernels a
+   step under torch.profiler, peak memory, one step in bf16 against f32,
+   one BatchNorm's running statistics against flax's rule by hand, and
+   remat's gradients bit-equal to the plain step's with the statistics
+   moved once and both peaks; (c) ViT-B/16 at full width (AdamW, bf16,
+   batch 256): one step against attention by `mha_reference`, each
+   flash kernel launched once per layer every step, the held-out gate,
+   step p50, images/s, MFU and busy share; then times the flash kernels
+   at ViT's shape (S 197, non-causal) beside bound and SDPA;
+12. prints the kernel table as one JSON line (one row per kernel and
    path that launches it, with that path's launches and the times at
    its shape), the card line, and the contract line
    `{"ok": true, "device": {...}}` last.
@@ -142,6 +169,12 @@ runs phase 7's fit alone on the port found in TREE (this checkout, or
 an earlier commit unpacked there with `git archive`), once per data
 seed in the comma-separated SEEDS, and writes each seed's losses and
 gate to OUT (JSON).
+
+    python3 chip_smoke.py --phase11
+
+builds the kernels and runs the ViT shape's flash check and phase 11
+alone (no kernel table, no contract line), writing
+build/chip_smoke_phase11.json.
 
     python3 chip_smoke.py --flash-times TREE OUT
 
@@ -606,6 +639,10 @@ def tick_breakdown(model):
 # 512) at B 1, S 2048.
 QWEN3_ATTENTION = (2, 2048, 32, 4, 128)
 DEEPSEEK_V4_ATTENTION = (1, 2048, 64, 1, 512)
+# ViT-B/16's attention at phase 11's batch 256: 197 tokens (196 patches
+# of 16 x 16 at 224 x 224, and the cls token), 12 heads of 64,
+# non-causal. No tile divides 197: the kernels mask the keys past S.
+VIT_ATTENTION = (256, 197, 12, 12, 64)
 
 FLASH_CASES = (
     # name, dtype, (B, S, H, H_kv, D), kwargs, mask kind, q scale
@@ -671,6 +708,8 @@ FLASH_CASES = (
      dict(causal=True, window=64, logit_softcap=8.0), "dead", 4),
     ("d576_bf16", "bf16", (2, 300, 8, 1, 576), dict(causal=True), None, 1),
     ("d320_f32", "f32", (2, 300, 8, 4, 320), dict(causal=True), "dead", 1),
+    # ViT-B/16's attention (phase 11's training shape), non-causal.
+    ("vit_b16_bf16", "bf16", VIT_ATTENTION, dict(causal=False), None, 1),
 )
 GEMMA2_ATTENTION = (2, 2048, 8, 4, 256)
 PHI3_ATTENTION = (2, 2048, 32, 32, 96)
@@ -679,7 +718,8 @@ PHI2_ATTENTION = (2, 2048, 32, 32, 80)
 # rows of the kernel table.
 FLASH_PATH_CASES = {"gpt2_bf16": "gpt2_train",
                     "tinyllama_bf16": "tinyllama_train",
-                    "qwen3moe_bf16": "qwen3moe_train"}
+                    "qwen3moe_bf16": "qwen3moe_train",
+                    "vit_b16_bf16": "vit_train"}
 
 
 def flash_inputs(rng, dtype, shape, mask_kind, device, q_scale=1):
@@ -757,7 +797,7 @@ def compare(got, want, rtol, atol):
             "worst_at": list(np.unravel_index(worst, tuple(err.shape)))}
 
 
-def check_flash_kernels(device):
+def check_flash_kernels(device, names=None):
     """Every FLASH_CASES case through the public `flash_attention` and
     `torch.autograd.grad` (the training path's calls): out element by
     element (`compare`) against `mha_reference` in f32 on the same
@@ -773,6 +813,8 @@ def check_flash_kernels(device):
     details = {}
     path_err = {}
     for name, dtype, shape, kw, mask_kind, q_scale in FLASH_CASES:
+        if names is not None and name not in names:
+            continue
         q, k, v, dout, mask = flash_inputs(rng, dtype, shape, mask_kind,
                                            device, q_scale)
         leaves = [x.requires_grad_(True) for x in (q, k, v)]
@@ -898,9 +940,10 @@ def sdpa_backends(call):
     return {"accepted": accepted, "kernels": names}
 
 
-def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
-    """Each kernel at a training shape (B, S, H, H_kv, D; bf16, causal;
-    GPT-2's by default) by CUDA graph replays, beside its bound, the
+def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64), causal=True):
+    """Each kernel at a training shape (B, S, H, H_kv, D; bf16, causal
+    unless `causal` is False; GPT-2's by default) by CUDA graph
+    replays, beside its bound, the
     plain version (the forward by graph replays; the backward, which
     computes dq, dk and dv together, by `backward_ms`) and
     scaled_dot_product_attention (the same; enable_gqa for H_kv < H),
@@ -918,7 +961,7 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
     q, k, v, dout, _ = flash_inputs(rng, "bf16",
                                     (batch, seq, heads, kv_heads, head_dim),
                                     None, device)
-    config = (True, 1.0 / np.sqrt(head_dim), 0, 0.0)
+    config = (bool(causal), 1.0 / np.sqrt(head_dim), 0, 0.0)
     out, lse = tatt._launch_forward(q, k, v, None, config)
     delta = tatt._delta(dout, out)
     calls = {
@@ -947,33 +990,43 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
 
     def plain_fwd():
         with torch.no_grad():
-            return tatt.mha_reference(q, k, v, causal=True)
+            return tatt.mha_reference(q, k, v, causal=causal)
 
     def sdpa_fwd():
         with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   **gqa)
 
     plain_f = timed_ms(plain_fwd)
     backends = sdpa_backends(sdpa_fwd)
     plain_b, plain_kernels = backward_ms(
-        tatt.mha_reference(*leaves, causal=True), leaves, dout)
+        tatt.mha_reference(*leaves, causal=causal), leaves, dout)
     lib_f = timed_ms(sdpa_fwd)
     lib_b, lib_kernels = backward_ms(
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa),
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa),
         leaves, dout.transpose(1, 2))
+    if not lib_kernels:
+        # The profiler saw none of SDPA's backward kernels (it happened at
+        # ViT's shape late in the run): CUDA events around queued calls
+        # instead, the host's launches hidden behind the device's work.
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal, **gqa)
+        lib_b = event_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dout.transpose(1, 2), retain_graph=True),
+            iters=10)
+        lib_kernels = float("nan")
     # The port's whole backward timed as SDPA's is: delta = rowsum(dO O)
     # (plain PyTorch, as the JAX backward computes it), dq and dk/dv,
     # through `flash_attention`'s autograd.
     port_b, port_kernels = backward_ms(
-        tatt.flash_attention(*leaves, causal=True), leaves, dout)
+        tatt.flash_attention(*leaves, causal=causal), leaves, dout)
     rows["sdpa"] = backends
     rows["backward"] = {"port_ms": port_b, "port_kernels": port_kernels,
                         "delta_ms": timed_ms(lambda: tatt._delta(dout, out)),
                         "sdpa_ms": lib_b, "sdpa_kernels": lib_kernels,
                         "plain_ms": plain_b}
     cost = tatt.flash_attention_cost(batch, seq, heads, kv_heads, head_dim,
-                                     causal=True)
+                                     causal=causal)
     for name, part, plain, lib in (
             ("flash_attention_fwd", "forward", plain_f, lib_f),
             ("flash_attention_dq", "dq", plain_b, lib_b),
@@ -984,10 +1037,11 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64)):
         row["library_ms"] = lib
         row["flops"] = cost[part]["flops"]
         row["bytes"] = cost[part]["bytes_moved"]
-        log("kernel {} (B {}, S {}, H {}, H_kv {}, D {}, bf16, causal): "
+        log("kernel {} (B {}, S {}, H {}, H_kv {}, D {}, bf16, {}): "
             "{:.4f} ms (bound {:.4f} ms by {}; {:.1f} TFLOP/s), plain {:.4f} "
             "ms, library {:.4f} ms; host {:.1f} us per launch".format(
-                name, *shape, row["ms"], row["bound_ms"], row["bound_by"],
+                name, *shape, "causal" if causal else "non-causal",
+                row["ms"], row["bound_ms"], row["bound_by"],
                 row["flops"] / row["ms"] / 1e9, plain, lib,
                 row["host_us"]))
     log("sdpa at this shape: backends that take it {}; the default call "
@@ -2949,6 +3003,665 @@ def training_loop(device, root):
     return summary
 
 
+# -- phase 11: the image families (MNIST, ResNet-50, ViT-B/16) ------------
+
+# Synthetic images whose class a model can recover: one random template
+# per class (unit normal per pixel) under unit normal noise.
+IMAGE_CLASSES = tuple(range(0, 1000, 100))   # K = 10 of the 1000 classes
+IMAGE_SIZE = 224
+IMAGE_TRAIN = 2560                           # 10 batches of 256
+IMAGE_HELD_OUT = 512
+# bench.py's operating point (`cloud_tpu`'s headline number): ResNet-50
+# at batch 256, 224 x 224, SGD 0.1 with momentum 0.9, bf16 compute, the
+# data resident on the device, steps_per_execution.
+RESNET_BATCH = 256
+RESNET_SPE = 5
+RESNET_EPOCHS = 8
+VIT_BATCH = 256
+VIT_EPOCHS = 6
+VIT_PEAK_LR = 1e-3
+# Held-out accuracy gates (chance is 1/K): the templates are far apart
+# under the noise, so a model that learned them scores near 1.
+IMAGE_ACC_GATE = 0.9
+MNIST_ACC_GATE = 0.9
+MNIST_TRAIN, MNIST_HELD_OUT, MNIST_BATCH, MNIST_EPOCHS = 4096, 1024, 128, 2
+MNIST_SPE = 16
+OPTIMIZER_STEPS = 20
+# The eight optimizers' 20 steps on an f32 MLP, card against CPU: the
+# parameters' distance ||card - cpu|| within this share of their
+# movement ||cpu - start|| (the same f32 arithmetic summed in other
+# orders; adaptive optimizers divide by sqrt(v) and Lion takes signs,
+# which can turn a rounding difference of a near-zero entry into a step).
+OPTIMIZER_TOL = 1e-2
+# One ResNet-50 step in bf16 against the same step with compute_dtype
+# float32 (TF32 off in cuBLAS and cuDNN): the loss within 2e-2 relative
+# and each parameter's gradient norm within 5e-2 relative plus 1e-3 of
+# the largest norm (bf16 rounds every activation of 50 layers to 2^-9,
+# and BatchNorm divides by batch statistics computed from them).
+RESNET_LOSS_TOL = 2e-2
+RESNET_GRAD_TOL = 5e-2
+# One BatchNorm layer's running statistics after a step against flax's
+# rule computed by hand in f32 from the layer's input: r <- 0.9 r + 0.1
+# s, s the batch mean and the biased variance E[x^2] - E[x]^2; 1e-3
+# relative plus 1e-6 (the kernels' sums in other orders, and the
+# variance recovered from 1 / sqrt(var + eps)).
+BN_STATS_TOL = 1e-3
+
+
+def class_images(seed, n, size, classes, channels=3):
+    """(x [n, size, size, channels] f32, or [n, size, size] without
+    channels; labels in `classes`): each example its class's template
+    plus noise, both unit normal; the classes in a shuffled cycle."""
+    rng = np.random.default_rng(seed)
+    k = len(classes)
+    shape = (size, size, channels) if channels else (size, size)
+    templates = rng.standard_normal((k,) + shape, dtype=np.float32)
+    idx = np.arange(n) % k
+    rng.shuffle(idx)
+    x = rng.standard_normal((n,) + shape, dtype=np.float32)
+    x += templates[idx]
+    return x, np.asarray(classes, np.int32)[idx]
+
+
+def step_counters():
+    """The counters a warm start must leave unmoved on step 1: nvcc
+    builds (and their seconds), graph captures, the guard counters."""
+    from cloud_tpu_torch.ops import _build
+    from cloud_tpu_torch.training import trainer as ttrainer
+    from cloud_tpu_torch.training.resilience import guard_stats
+
+    return {"builds": _build.build_count(),
+            "build_seconds": dict(_build.build_seconds),
+            "captures": ttrainer.graph_captures(), "guard": guard_stats()}
+
+
+def step_clock():
+    """A callback timing each epoch's steps: on_epoch_begin marks the
+    host clock (after the fit's upload and warm start), on_epoch_end
+    synchronizes the card and records the seconds, the clock at the end
+    (`end`) and `step_counters` before and after. Returns (callback,
+    rows)."""
+    import torch
+    from cloud_tpu_torch.training.callbacks import Callback
+
+    rows = []
+
+    class Clock(Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            self.t0 = time.monotonic()
+            self.before = step_counters()
+
+        def on_epoch_end(self, epoch, logs=None):
+            torch.cuda.synchronize()
+            end = time.monotonic()
+            rows.append({"seconds": end - self.t0, "end": end,
+                         "counters_before": self.before,
+                         "counters_after": step_counters()})
+
+    return Clock(), rows
+
+
+def params_of(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def same_state(a, b):
+    import torch
+
+    return all(torch.equal(a[k], b[k].to(a[k].device)) for k in a)
+
+
+def mnist_phase(device, smi):
+    """Phase 11a: MNIST's MLP and ConvNet on class-template images."""
+    import torch
+    from cloud_tpu_torch.models import MLP, ConvNet
+    from cloud_tpu_torch.parallel import runtime
+    from cloud_tpu_torch.training import OPTIMIZERS, Trainer
+    from cloud_tpu_torch.training import data as tdata
+
+    out = {}
+    x, y = class_images(21, MNIST_TRAIN + MNIST_HELD_OUT, 28,
+                        tuple(range(10)), channels=0)
+    x_tr, y_tr = x[:MNIST_TRAIN], y[:MNIST_TRAIN]
+    x_te, y_te = x[MNIST_TRAIN:], y[MNIST_TRAIN:]
+
+    def adam(params):
+        # The example's optax.adam(1e-3), capturable so that the graph
+        # route and the eager one run the same arithmetic.
+        return torch.optim.Adam(params, lr=1e-3, capturable=True)
+
+    def mlp_trainer(spe=1):
+        return Trainer(MLP(hidden=512, num_classes=10, device=device,
+                           seed=0), optimizer=adam, seed=0,
+                       steps_per_execution=spe)
+
+    fits = {}
+    for spe in (1, MNIST_SPE):
+        trainer = mlp_trainer(spe)
+        h = trainer.fit(x_tr, y_tr, epochs=MNIST_EPOCHS,
+                        batch_size=MNIST_BATCH, verbose=False)
+        torch.cuda.synchronize()
+        fits[spe] = (trainer, h, params_of(trainer.model))
+    (t1, h1, p1), (t16, h16, p16) = fits[1], fits[MNIST_SPE]
+    if t16._spe_route != "graph":
+        raise AssertionError("MNIST spe fit did not take the graph route")
+    if not (same_state(p1, p16) and h1["loss"] == h16["loss"]):
+        raise AssertionError("MNIST fit at steps_per_execution {} is not "
+                             "bit-equal to spe 1".format(MNIST_SPE))
+    acc = t1.evaluate(x_te, y_te, batch_size=256,
+                      verbose=False)["accuracy"]
+    log("11a MLP(512): held-out accuracy {:.4f} (gate {}); spe 1 and {} "
+        "bit-equal; steps/s (last epoch, host clock) spe 1 {:.1f}, spe {} "
+        "{:.1f} [{}]".format(acc, MNIST_ACC_GATE, MNIST_SPE,
+                             h1["steps_per_sec"][-1], MNIST_SPE,
+                             h16["steps_per_sec"][-1], smi))
+    if not acc >= MNIST_ACC_GATE:
+        raise AssertionError("MNIST MLP held-out accuracy {} below {}"
+                             .format(acc, MNIST_ACC_GATE))
+    out["mlp"] = {"held_out_accuracy": acc, "loss": h1["loss"],
+                  "steps_per_sec_spe1": h1["steps_per_sec"],
+                  "steps_per_sec_spe16": h16["steps_per_sec"]}
+
+    # cache="device" with input_cast="uint8" against the host-fed fit
+    # under the same cast (both at spe 16: graph replays).
+    host = mlp_trainer(MNIST_SPE)
+    hh = host.fit(x_tr, y_tr, epochs=MNIST_EPOCHS, batch_size=MNIST_BATCH,
+                  input_cast="uint8", verbose=False)
+    res = mlp_trainer(MNIST_SPE)
+    runtime.reset_transfer_stats()
+    hr = res.fit(x_tr, y_tr, epochs=MNIST_EPOCHS, batch_size=MNIST_BATCH,
+                 cache="device", input_cast="uint8", verbose=False)
+    torch.cuda.synchronize()
+    stats = runtime.transfer_stats()
+    upload = MNIST_TRAIN * 28 * 28 + MNIST_TRAIN * 8
+    if stats["h2d_bytes"] != upload or stats["h2d_transfers"] != 2:
+        raise AssertionError("resident fit moved {} h2d bytes in {} "
+                             "transfers; the upload is {}".format(
+                                 stats["h2d_bytes"], stats["h2d_transfers"],
+                                 upload))
+    if hh["loss"] != hr["loss"] or not same_state(params_of(host.model),
+                                                  params_of(res.model)):
+        raise AssertionError("resident uint8 fit differs from host-fed")
+    log("11a resident uint8 fit: h2d {} bytes in {} transfers (the upload "
+        "alone: zero example bytes after it), d2h {} fetches; history and "
+        "parameters bit-equal to the host-fed fit [{}]".format(
+            stats["h2d_bytes"], stats["h2d_transfers"],
+            stats["d2h_fetches"], smi))
+    out["resident"] = {"transfer_stats": stats, "upload_bytes": upload}
+
+    # The streaming datasets and prefetch_to_device over the same batches
+    # (in order) against the array fit without shuffling.
+    batches = [(x_tr[i:i + MNIST_BATCH], y_tr[i:i + MNIST_BATCH])
+               for i in range(0, MNIST_TRAIN, MNIST_BATCH)]
+    ref = mlp_trainer().fit(x_tr, y_tr, epochs=MNIST_EPOCHS,
+                            batch_size=MNIST_BATCH, shuffle=False,
+                            verbose=False)
+    streams = {
+        "GeneratorDataset": tdata.GeneratorDataset(lambda: iter(batches)),
+        "ThreadedDataset": tdata.ThreadedDataset(
+            tdata.GeneratorDataset(lambda: iter(batches)), buffer_size=4),
+        "prefetch_to_device": list(tdata.prefetch_to_device(
+            iter(batches), size=2, device=device))}
+    for name, stream in streams.items():
+        h = mlp_trainer().fit(stream, epochs=MNIST_EPOCHS, verbose=False)
+        if h["loss"] != ref["loss"]:
+            raise AssertionError("{} history {} differs from the array "
+                                 "fit's {}".format(name, h["loss"],
+                                                   ref["loss"]))
+    log("11a GeneratorDataset, ThreadedDataset and prefetch_to_device: "
+        "histories bit-equal to the array fit's")
+
+    conv = Trainer(ConvNet(num_classes=10, device=device, seed=0),
+                   optimizer="adam", seed=0)
+    conv.fit(x_tr, y_tr, epochs=MNIST_EPOCHS, batch_size=MNIST_BATCH,
+             verbose=False)
+    conv_acc = conv.evaluate(x_te, y_te, batch_size=256,
+                             verbose=False)["accuracy"]
+    log("11a ConvNet: held-out accuracy {:.4f} (gate {}) [{}]".format(
+        conv_acc, MNIST_ACC_GATE, smi))
+    if not conv_acc >= MNIST_ACC_GATE:
+        raise AssertionError("ConvNet held-out accuracy {} below {}"
+                             .format(conv_acc, MNIST_ACC_GATE))
+    out["convnet"] = {"held_out_accuracy": conv_acc}
+
+    # Each optimizer, 20 steps in f32, on the card and on the CPU.
+    opt_rows = {}
+    for name in OPTIMIZERS:
+        finals = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            model = MLP(hidden=512, num_classes=10,
+                        compute_dtype=torch.float32, device=dev, seed=0)
+            start = {k: v.cpu() for k, v in params_of(model).items()}
+            trainer = Trainer(model, optimizer=name, seed=0)
+            trainer.fit(x_tr, y_tr, epochs=1, batch_size=MNIST_BATCH,
+                        steps_per_epoch=OPTIMIZER_STEPS, shuffle=False,
+                        verbose=False)
+            finals[where] = {k: v.cpu() for k, v in
+                             params_of(model).items()}
+        diff = sum(float((finals["card"][k] - finals["cpu"][k]).square()
+                         .sum()) for k in start) ** 0.5
+        moved = sum(float((finals["cpu"][k] - start[k]).square().sum())
+                    for k in start) ** 0.5
+        rel = diff / max(moved, 1e-30)
+        opt_rows[name] = {"rel_distance": rel, "moved": moved}
+        if not rel <= OPTIMIZER_TOL:
+            raise AssertionError("optimizer {}: card against CPU {:.3e} of "
+                                 "the movement > {}".format(
+                                     name, rel, OPTIMIZER_TOL))
+    log("11a optimizers, {} f32 steps, ||card - cpu|| / ||cpu - start||: {} "
+        "(tol {})".format(OPTIMIZER_STEPS, ", ".join(
+            "{} {:.2e}".format(k, v["rel_distance"])
+            for k, v in opt_rows.items()), OPTIMIZER_TOL))
+    out["optimizers"] = opt_rows
+    return out
+
+
+def grads_and_loss(model, x, y):
+    """One step's loss and each parameter's gradient norm (train mode)."""
+    import torch.nn.functional as F
+
+    model.zero_grad(set_to_none=True)
+    logits = model(x, train=True)
+    loss = F.cross_entropy(logits.float(), y.long())
+    loss.backward()
+    norms = {n: p.grad.float().norm().item()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), norms
+
+
+def compare_norms(name, loss_a, norms_a, loss_b, norms_b, loss_tol,
+                  grad_tol, floor=1e-3):
+    """loss_a against loss_b (relative) and each gradient norm within
+    grad_tol relative plus floor x the largest norm of b."""
+    top = max(norms_b.values())
+    worst, worst_name = 0.0, None
+    for key, want in norms_b.items():
+        err = abs(norms_a[key] - want) / (want + floor * top)
+        if err > worst:
+            worst, worst_name = err, key
+    loss_rel = abs(loss_a - loss_b) / abs(loss_b)
+    log("{}: loss {:.6f} against {:.6f} (rel {:.2e}, tol {}); worst "
+        "grad-norm error {:.2e} at {} (tol {} relative + {} of the largest)"
+        .format(name, loss_a, loss_b, loss_rel, loss_tol, worst, worst_name,
+                grad_tol, floor))
+    if not (np.isfinite(loss_a) and loss_rel <= loss_tol
+            and worst <= grad_tol):
+        raise AssertionError(name + " disagrees")
+    return {"loss": loss_a, "reference_loss": loss_b,
+            "loss_rel_diff": loss_rel, "worst_grad_norm_err": worst,
+            "worst_grad_norm_param": worst_name}
+
+
+def graph_of(trainer):
+    return next(iter(trainer._graphs.values()))
+
+
+def resnet_phase(device, smi, x, y):
+    """Phase 11b: ResNet-50 at full width at bench.py's operating point."""
+    import torch
+    from cloud_tpu_torch.models import ResNet50
+    from cloud_tpu_torch.models.resnet import resnet_train_flops
+    from cloud_tpu_torch.parallel import runtime
+    from cloud_tpu_torch.training import Trainer, make_optimizer
+
+    torch.backends.cudnn.benchmark = True
+    x_tr, y_tr = x[:IMAGE_TRAIN], y[:IMAGE_TRAIN]
+    x_te, y_te = x[IMAGE_TRAIN:], y[IMAGE_TRAIN:]
+    fit_kw = dict(batch_size=RESNET_BATCH, cache="device",
+                  input_cast="bfloat16", verbose=False)
+
+    def trainer_of(model, spe=RESNET_SPE, remat=False):
+        return Trainer(model, optimizer=make_optimizer("sgd", 0.1), seed=0,
+                       metrics=("accuracy",), train_kwargs={"train": True},
+                       eval_kwargs={"train": False},
+                       steps_per_execution=spe, remat=remat)
+
+    out = {}
+    # The first step's latency, from the fit's call to its first step's
+    # end: without a warm start it holds the one-off costs (the upload,
+    # cuDNN's algorithm search, the warm step and the capture); then on
+    # another Trainer of the same geometry after `warmup()` paid them.
+    cold_cb, cold_rows = step_clock()
+    warm_cb, warm_rows = step_clock()
+    cold = trainer_of(ResNet50(num_classes=1000, device=device, seed=0))
+    before_cold = step_counters()
+    t_cold = time.monotonic()
+    cold.fit(x_tr, y_tr, epochs=1, steps_per_epoch=1, callbacks=[cold_cb],
+             **fit_kw)
+    cold_s = cold_rows[0]["end"] - t_cold
+    cold_captures = cold_rows[0]["counters_after"]["captures"] \
+        - before_cold["captures"]
+    del cold
+    torch.cuda.empty_cache()
+    model = ResNet50(num_classes=1000, device=device, seed=0)
+    trainer = trainer_of(model)
+    t_warm = time.monotonic()
+    trainer.warmup(x_tr, y_tr, batch_size=RESNET_BATCH,
+                   input_cast="bfloat16", cache="device")
+    torch.cuda.synchronize()
+    warmup_s = time.monotonic() - t_warm
+    t_first = time.monotonic()
+    trainer.fit(x_tr, y_tr, epochs=1, steps_per_epoch=1, warm_start=True,
+                callbacks=[warm_cb], **fit_kw)
+    first = warm_rows[0]
+    warm_s = first["end"] - t_first
+    moved = {k: (first["counters_before"][k], first["counters_after"][k])
+             for k in first["counters_before"]
+             if first["counters_before"][k] != first["counters_after"][k]}
+    log("11b ResNet-50 first step, from fit() to its end: {:.3f} s without "
+        "a warm start ({} capture(s) in it), {:.3f} s after {:.2f} s of "
+        "warmup() (the step alone {:.3f} s; counters moved on step 1: {}) "
+        "[{}]".format(cold_s, cold_captures, warm_s, warmup_s,
+                      first["seconds"], moved or "none", smi))
+    if moved:
+        raise AssertionError("warm start: step 1 moved {}".format(moved))
+    out["first_step_s"] = {"cold": cold_s, "warm": warm_s,
+                           "warm_step_alone": first["seconds"],
+                           "warmup_s": warmup_s}
+
+    runtime.reset_transfer_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t_fit = time.monotonic()
+    history = trainer.fit(x_tr, y_tr, epochs=RESNET_EPOCHS, warm_start=True,
+                          **fit_kw)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t_fit
+    # Reserved, not allocated: a graph replay allocates nothing, its
+    # step's memory is the graph's pool.
+    peak_fit = torch.cuda.max_memory_reserved()
+    stats = runtime.transfer_stats()
+    if stats["h2d_bytes"] != 0:
+        raise AssertionError("resident ResNet fit moved {} h2d bytes"
+                             .format(stats["h2d_bytes"]))
+    if trainer._spe_route != "graph":
+        raise AssertionError("ResNet fit did not take the graph route")
+    resident = trainer._resident[2]
+    log("11b ResNet-50 fit: {} epochs x {} steps (spe {}, graph), loss {} "
+        "accuracy {}; {:.1f} s; h2d 0 bytes; peak reserved memory {:.2f} "
+        "GB [{}]"
+        .format(RESNET_EPOCHS, IMAGE_TRAIN // RESNET_BATCH, RESNET_SPE,
+                [round(v, 4) for v in history["loss"]],
+                [round(v, 4) for v in history["accuracy"]], fit_s,
+                peak_fit / 1e9, smi))
+    val = trainer.evaluate(x_te, y_te, batch_size=RESNET_BATCH,
+                           verbose=False)
+    pred = trainer.predict(x_te, batch_size=RESNET_BATCH)
+    pred_acc = float((pred.argmax(-1) == y_te).mean())
+    if pred.shape != (IMAGE_HELD_OUT, 1000) or not np.isfinite(pred).all():
+        raise AssertionError("predict gave {}".format(pred.shape))
+    if abs(pred_acc - val["accuracy"]) > 1e-6:
+        raise AssertionError("predict accuracy {} != evaluate's {}".format(
+            pred_acc, val["accuracy"]))
+    log("11b ResNet-50 held-out (train=False): loss {:.4f} accuracy {:.4f} "
+        "(gate {}), predict's argmax accuracy {:.4f}".format(
+            val["loss"], val["accuracy"], IMAGE_ACC_GATE, pred_acc))
+    if not val["accuracy"] >= IMAGE_ACC_GATE:
+        raise AssertionError("ResNet-50 held-out accuracy {} below {}"
+                             .format(val["accuracy"], IMAGE_ACC_GATE))
+
+    graph = graph_of(trainer)
+    graph.start_epoch(resident.epoch_order(0), 0)
+    times = []
+    for _ in range(10):
+        t1 = time.monotonic()
+        graph.run()
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t1)
+    p50 = float(np.median(times))
+    flops = resnet_train_flops(model, RESNET_BATCH, IMAGE_SIZE)
+    mfu = flops / p50 / PEAK_FLOPS["bf16"]
+    graph.start_epoch(resident.epoch_order(0), 0)
+    prof = profile_steps(lambda i: graph.run(), ("conv",), n=3)
+    idx = torch.arange(RESNET_BATCH, device=device)
+    bx, by = resident.gather(idx)
+    eager_times = []
+    for _ in range(5):
+        t1 = time.monotonic()
+        trainer._step(bx, by, None)
+        torch.cuda.synchronize()
+        eager_times.append(time.monotonic() - t1)
+    eager_prof = profile_steps(lambda i: trainer._step(bx, by, None),
+                               ("conv",), n=3)
+    log("11b ResNet-50 step (graph replay): p50 {:.2f} ms, {:.0f} images/s, "
+        "MFU {:.1%} ({:.3f} TFLOP a step from the conv and dense shapes); "
+        "busy {} over replays, {} kernels a step under the profiler; eager "
+        "step p50 {:.2f} ms, busy {}, {:.0f} kernels a step, device {:.2f} "
+        "ms [{}]".format(
+            p50 * 1e3, RESNET_BATCH / p50, mfu, flops / 1e12,
+            prof["device_busy_share"], prof["kernels_per_step"],
+            float(np.median(eager_times)) * 1e3,
+            eager_prof["device_busy_share"], eager_prof["kernels_per_step"],
+            eager_prof["device_ms_per_step"], smi))
+    log_top_kernels("11b resnet50 eager", eager_prof["top_kernels"][:5])
+    out.update({
+        "history": history, "fit_s": fit_s, "peak_fit_bytes": peak_fit,
+        "held_out": val, "step_p50_s": p50, "step_s": times,
+        "images_per_s": RESNET_BATCH / p50, "mfu": mfu,
+        "train_flops_per_step": flops, "profile_graph": prof,
+        "eager_step_p50_s": float(np.median(eager_times)),
+        "profile_eager": eager_prof})
+
+    # One step in bf16 against the same step in f32 from the initial
+    # weights (the trained model's loss is ~1e-3, its gradients rounding
+    # noise); the first BatchNorm's running statistics against flax's rule
+    # by hand.
+    state = params_of(model)
+    xb = torch.tensor(x_te[:64], device=device)
+    yb = torch.tensor(y_te[:64], device=device)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lo = ResNet50(num_classes=1000, device=device, seed=0)
+        hi = ResNet50(num_classes=1000, compute_dtype=torch.float32,
+                      device=device, seed=0)
+        seen = {}
+
+        def keep_input(module, args):
+            seen.setdefault("x", args[0].detach())
+
+        hook = lo.bn_init.register_forward_pre_hook(keep_input)
+        old_mean = lo.bn_init.running_mean.clone()
+        old_var = lo.bn_init.running_var.clone()
+        loss_lo, norms_lo = grads_and_loss(lo, xb, yb)
+        hook.remove()
+        loss_hi, norms_hi = grads_and_loss(hi, xb, yb)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    out["one_step"] = compare_norms(
+        "11b ResNet-50 one step bf16 against f32", loss_lo, norms_lo,
+        loss_hi, norms_hi, RESNET_LOSS_TOL, RESNET_GRAD_TOL)
+    xf = seen["x"].float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+    want_mean = 0.9 * old_mean + 0.1 * mean
+    want_var = 0.9 * old_var + 0.1 * var
+    bn_err = max(
+        ((lo.bn_init.running_mean - want_mean).abs()
+         / (want_mean.abs() * BN_STATS_TOL + 1e-6)).max().item(),
+        ((lo.bn_init.running_var - want_var).abs()
+         / (want_var.abs() * BN_STATS_TOL + 1e-6)).max().item())
+    log("11b bn_init running statistics against flax's rule by hand: "
+        "{:.3f} of the tolerance ({} relative + 1e-6)".format(
+            bn_err, BN_STATS_TOL))
+    if not bn_err <= 1.0:
+        raise AssertionError("BatchNorm running statistics off flax's rule")
+    out["bn_stats_tol_ratio"] = bn_err
+    del lo, hi, seen, xf
+
+    # remat: the same step's gradients with and without recompute, cuDNN
+    # in its deterministic algorithms; the running statistics moved once
+    # (equal to the plain step's); peak memory of each.
+    torch.backends.cudnn.deterministic = True
+    remat_rows, grads, buffers = {}, {}, {}
+    try:
+        for remat in (False, True):
+            m = ResNet50(num_classes=1000, device=device, seed=None)
+            m.load_state_dict(state)
+            t = trainer_of(m, spe=1, remat=remat)
+            t.build()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outputs = t._forward(bx, 0, False)
+            loss = torch.nn.functional.cross_entropy(outputs, by.long())
+            loss.backward()
+            torch.cuda.synchronize()
+            remat_rows["peak_bytes_remat" if remat else "peak_bytes_plain"] \
+                = torch.cuda.max_memory_allocated() - base
+            grads[remat] = {n: p.grad.clone()
+                            for n, p in m.named_parameters()}
+            buffers[remat] = {n: b.clone() for n, b in m.named_buffers()}
+            del m, t, outputs, loss
+    finally:
+        torch.backends.cudnn.deterministic = False
+    equal = all(torch.equal(grads[False][n], grads[True][n])
+                for n in grads[False])
+    once = all(torch.equal(buffers[False][n], buffers[True][n])
+               for n in buffers[False])
+    log("11b ResNet-50 remat at batch {}: gradients bit-equal to the plain "
+        "step's {}, running statistics moved once {}; peak step memory "
+        "plain {:.2f} GB, remat {:.2f} GB [{}]".format(
+            RESNET_BATCH, equal, once,
+            remat_rows["peak_bytes_plain"] / 1e9,
+            remat_rows["peak_bytes_remat"] / 1e9, smi))
+    if not (equal and once):
+        raise AssertionError("remat step differs from the plain step")
+    out["remat"] = remat_rows
+    del trainer, model, graph, grads, buffers, resident, bx, by, state
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_one_step_check(model, x, y):
+    """ViT-B/16's loss and gradient norms of one step with attention by
+    the flash kernels and by mha_reference (the model's attention call
+    swapped for the second run only)."""
+    from cloud_tpu_torch.models import vit as tvit
+    from cloud_tpu_torch.ops import attention as tatt
+
+    tatt.reset_launches()
+    loss_k, norms_k = grads_and_loss(model, x, y)
+    launched = dict(tatt.launches)
+    kernel_attention = tvit.attention_ops.attention
+
+    def plain(q, k, v, causal=True, **kw):
+        return tatt.mha_reference(q, k, v, causal=causal, **kw)
+
+    tvit.attention_ops.attention = plain
+    try:
+        loss_p, norms_p = grads_and_loss(model, x, y)
+    finally:
+        tvit.attention_ops.attention = kernel_attention
+    if any(v != model.num_layers for v in launched.values()):
+        raise AssertionError("ViT one-step check launched {}".format(
+            launched))
+    return compare_norms("11c ViT-B/16 one step, flash against "
+                         "mha_reference", loss_k, norms_k, loss_p, norms_p,
+                         STEP_LOSS_TOL, STEP_GRAD_TOL)
+
+
+def vit_phase(device, smi, x, y):
+    """Phase 11c: ViT-B/16 at full width; returns (flash launches of its
+    fit, details)."""
+    import torch
+    from cloud_tpu_torch.models import ViT_B16
+    from cloud_tpu_torch.models.vit import vit_train_flops
+    from cloud_tpu_torch.ops import attention as tatt
+    from cloud_tpu_torch.training import Trainer, make_optimizer, schedules
+
+    x_tr, y_tr = x[:IMAGE_TRAIN], y[:IMAGE_TRAIN]
+    x_te, y_te = x[IMAGE_TRAIN:], y[IMAGE_TRAIN:]
+    model = ViT_B16(num_classes=1000, device=device, seed=0)
+    out = {"one_step": vit_one_step_check(
+        model, torch.tensor(x_te[:32], device=device),
+        torch.tensor(y_te[:32], device=device))}
+    steps = VIT_EPOCHS * (IMAGE_TRAIN // VIT_BATCH)
+    trainer = Trainer(model, optimizer=make_optimizer(
+        "adamw", schedules.warmup_cosine(VIT_PEAK_LR, steps,
+                                         warmup_steps=steps // 10)),
+        seed=0, train_kwargs={"train": True})
+    torch.cuda.reset_peak_memory_stats()
+    tatt.reset_launches()
+    t_fit = time.monotonic()
+    history = trainer.fit(x_tr, y_tr, epochs=VIT_EPOCHS,
+                          batch_size=VIT_BATCH, cache="device",
+                          input_cast="bfloat16", verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t_fit
+    launches = dict(tatt.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = model.num_layers * steps
+    if any(v != want for v in launches.values()):
+        raise AssertionError("ViT fit launched {}, want {} each".format(
+            launches, want))
+    val = trainer.evaluate(x_te, y_te, batch_size=VIT_BATCH, verbose=False)
+    log("11c ViT-B/16 fit: {} steps of {} (AdamW, bf16), loss {} accuracy "
+        "{}; {:.1f} s; flash launches {} ({} a step each: one per layer); "
+        "held-out loss {:.4f} accuracy {:.4f} (gate {}); peak memory {:.2f} "
+        "GB [{}]".format(steps, VIT_BATCH,
+                         [round(v, 4) for v in history["loss"]],
+                         [round(v, 4) for v in history["accuracy"]], fit_s,
+                         launches, model.num_layers, val["loss"],
+                         val["accuracy"], IMAGE_ACC_GATE, peak / 1e9, smi))
+    if not val["accuracy"] >= IMAGE_ACC_GATE:
+        raise AssertionError("ViT-B/16 held-out accuracy {} below {}"
+                             .format(val["accuracy"], IMAGE_ACC_GATE))
+    resident = trainer._resident[2]
+    bx, by = resident.gather(torch.arange(VIT_BATCH, device=device))
+    times = []
+    for _ in range(10):
+        t1 = time.monotonic()
+        trainer._step(bx, by, None)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t1)
+    p50 = float(np.median(times))
+    flops = vit_train_flops(model, VIT_BATCH)
+    prof = profile_steps(lambda i: trainer._step(bx, by, None),
+                         ("flash",), n=3)
+    log("11c ViT-B/16 step: p50 {:.2f} ms, {:.0f} images/s, MFU {:.1%} "
+        "({:.3f} TFLOP a step from the shapes); busy {:.1%}, {:.0f} kernels "
+        "a step, device {:.2f} ms a step, flash kernels {:.1%} of it [{}]"
+        .format(p50 * 1e3, VIT_BATCH / p50, flops / p50 / PEAK_FLOPS["bf16"],
+                flops / 1e12, prof["device_busy_share"] or 0.0,
+                prof["kernels_per_step"], prof["device_ms_per_step"],
+                prof["matched_share_of_device"] or 0.0, smi))
+    log_top_kernels("11c vit_b16", prof["top_kernels"][:5])
+    out.update({"history": history, "fit_s": fit_s, "launches": launches,
+                "held_out": val, "peak_fit_bytes": peak, "step_p50_s": p50,
+                "step_s": times, "images_per_s": VIT_BATCH / p50,
+                "mfu": flops / p50 / PEAK_FLOPS["bf16"],
+                "train_flops_per_step": flops, "profile": prof})
+    del trainer, model, resident, bx, by
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def image_phase(device, smi):
+    """Phase 11: MNIST, ResNet-50 and ViT-B/16 through Trainer.fit.
+    Returns (ViT's flash launches, the ViT shape's flash timing rows,
+    details)."""
+    import torch
+
+    t_phase = time.monotonic()
+    details = {"mnist": mnist_phase(device, smi)}
+    t_data = time.monotonic()
+    x, y = class_images(31, IMAGE_TRAIN + IMAGE_HELD_OUT, IMAGE_SIZE,
+                        IMAGE_CLASSES)
+    details["image_data_s"] = time.monotonic() - t_data
+    details["resnet50"] = resnet_phase(device, smi, x, y)
+    vit_launches, details["vit_b16"] = vit_phase(device, smi, x, y)
+    del x, y
+    torch.cuda.empty_cache()
+    vit_rows = time_flash_kernels(device, VIT_ATTENTION, causal=False)
+    details["flash_timing_vit_b16"] = vit_rows
+    details["phase11_s"] = time.monotonic() - t_phase
+    log("phase 11 took {:.1f} s (image data {:.1f} s) [{}]".format(
+        details["phase11_s"], details["image_data_s"], smi))
+    return vit_launches, vit_rows, details
+
+
 def llama_gate_seeds(seeds, out_path):
     """Phase 7's fit alone (`llama_data`, `llama_fit`; no other check),
     once per data seed, on the `cloud_tpu_torch` that is first on
@@ -3085,6 +3798,22 @@ def main():
     # the training phases time, as the JAX code computes it.
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    if "--phase11" in sys.argv:
+        # python3 chip_smoke.py --phase11: the build, the ViT flash check
+        # and phase 11 alone (no contract line).
+        _, vit_check = check_flash_kernels(device, names=("vit_b16_bf16",))
+        vit_launches, vit_rows, images = image_phase(device, smi)
+        os.makedirs(os.path.join(root, "build"), exist_ok=True)
+        with open(os.path.join(root, "build", "chip_smoke_phase11.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "flash_check": vit_check,
+                       "vit_launches": vit_launches, "images": images,
+                       "run_s": time.monotonic() - t_start}, f, indent=1,
+                      default=str)
+        log("phase 11 alone: whole run {:.1f} s".format(
+            time.monotonic() - t_start))
+        return 0
+
     rows = check_kernels(device)
     flash_err, flash_details = check_flash_kernels(device)
     flash_rows = time_flash_kernels(device)
@@ -3125,6 +3854,7 @@ def main():
     loop = training_loop(device, root)
     loop["phase10_s"] = time.monotonic() - t_phase10
     log("phase 10 took {:.1f} s".format(loop["phase10_s"]))
+    vit_launches, flash_rows_vit, images = image_phase(device, smi)
 
     # One row per kernel and path that launches it: the launches counted
     # from 0 around that path's run, the times and errors at its shape.
@@ -3142,7 +3872,8 @@ def main():
             ("gpt2_train", flash_rows, flash_launches),
             ("gpt2_loop", flash_rows, loop_launches),
             ("tinyllama_train", flash_rows_llama, llama_launches),
-            ("qwen3moe_train", flash_rows_qwen3, qwen3_launches)):
+            ("qwen3moe_train", flash_rows_qwen3, qwen3_launches),
+            ("vit_train", flash_rows_vit, vit_launches)):
         for name, line in (("flash_attention_fwd", "179"),
                            ("flash_attention_dq", "345"),
                            ("flash_attention_dkdv", "383")):
@@ -3208,6 +3939,7 @@ def main():
                    "qwen3moe_generate": qwen3_generation,
                    "qwen3moe_norm_rows": qwen3_norm_rows,
                    "lm_head_loss": head_loss, "training_loop": loop,
+                   "images": images,
                    "build_logs": _build.build_logs}, f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}), flush=True)

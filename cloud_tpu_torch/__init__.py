@@ -10,9 +10,12 @@ plain PyTorch version runs instead.
 Ported so far: paged decode attention (fp and int8 pages), flash
 attention (forward and backward), the fused residual-add + RMSNorm and
 the fused SwiGLU MLP; `TransformerLM` and `LlamaLM` (training forward
-and decode), `generate()`, the HuggingFace importers, the plain serving
-path (`Scheduler` -> `DecodeEngine`) and `Trainer` (fit / evaluate /
-predict over arrays).
+and decode), `generate()`, the HuggingFace importers, the image
+families (`MLP`, `ConvNet`, `ResNet`, `ViT`), the plain serving path
+(`Scheduler` -> `DecodeEngine`) and the single-device `Trainer` (fit /
+evaluate / predict over arrays, streams or a device-resident dataset;
+every optimizer, input casts, steps_per_execution, remat, warm starts,
+callbacks, checkpoints and the resilient fit).
 """
 
 from cloud_tpu_torch import models, ops, serving, training

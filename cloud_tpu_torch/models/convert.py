@@ -15,6 +15,20 @@
                                            (the same layout)
     ln_final/{scale,bias}               -> ln_final.{weight,bias}
     lm_head/kernel [d, V] (no bias)     -> lm_head.weight [V, d]
+
+The image families (`MLP`, `ConvNet`, `ResNet`, `ViT`) keep flax's
+module names, so their paths map one to one
+(`image_params_from_flax`, `image_params_to_flax`,
+`image_param_path`):
+
+    <path>/kernel [in, out] (Dense)       -> <path>.weight [out, in]
+    <path>/kernel [kh, kw, in, out] (Conv) -> <path>.weight [out, in, kh, kw]
+    block_i/query|key|value/kernel [D, H, hd] -> ....weight [H*hd, D]
+    block_i/query|key|value/bias [H, hd]  -> ....bias [H*hd]
+    block_i/out/kernel [H, hd, D]         -> ....out.weight [D, H*hd]
+    <norm>/scale, <norm>/bias (BatchNorm, LayerNorm) -> .weight, .bias
+    batch_stats <bn>/mean, <bn>/var       -> <bn>.running_mean, .running_var
+    cls_token [1, 1, D], pos_embed [1, N, D] -> the same names
 """
 
 import re
@@ -242,6 +256,121 @@ def llama_params_to_flax(state_dict, num_heads, num_kv_heads=None):
     return {k: _contiguous(v) for k, v in params.items()}
 
 
-__all__ = ["llama_param_path", "llama_params_from_flax",
-           "llama_params_to_flax", "params_from_flax", "params_to_flax",
-           "transformer_param_path"]
+def image_params_from_flax(variables):
+    """The JAX image model's variables ({"params": ..., "batch_stats":
+    ...}, or the params tree alone) -> a state dict of float32 CPU
+    tensors (parameters and BatchNorm buffers) for the port's model of
+    the same configuration. Raises on any leaf it does not map."""
+    if "params" in variables:
+        params = variables["params"]
+        stats = variables.get("batch_stats", {})
+    else:
+        params, stats = variables, {}
+    state = {}
+    for path, arr in _flatten(params):
+        leaf = path[-1]
+        module = ".".join(path[:-1])
+        prefix = module + "." if module else ""
+        if path in (("cls_token",), ("pos_embed",)):
+            state[leaf] = arr
+        elif leaf == "scale":
+            state[prefix + "weight"] = arr
+        elif leaf == "bias":
+            state[prefix + "bias"] = arr.reshape(-1)
+        elif leaf != "kernel":
+            raise ValueError("unmapped parameter {}".format("/".join(path)))
+        elif arr.ndim == 2:
+            state[prefix + "weight"] = arr.T
+        elif arr.ndim == 4:
+            state[prefix + "weight"] = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 3 and path[-2] == "out":
+            state[prefix + "weight"] = arr.reshape(-1, arr.shape[-1]).T
+        elif arr.ndim == 3:
+            state[prefix + "weight"] = arr.reshape(arr.shape[0], -1).T
+        else:
+            raise ValueError("unmapped parameter {}".format("/".join(path)))
+    for path, arr in _flatten(stats):
+        buffer = {"mean": "running_mean", "var": "running_var"}.get(path[-1])
+        if buffer is None:
+            raise ValueError("unmapped batch stat {}".format("/".join(path)))
+        state[".".join(path[:-1] + (buffer,))] = arr
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in state.items()}
+
+
+def _image_leaves(model):
+    """(port name, JAX path, kind) of every parameter and BatchNorm
+    buffer of an image model; kind says how the array is laid out."""
+    from cloud_tpu_torch.models import _layers
+    from cloud_tpu_torch.models.vit import EncoderBlock
+
+    rows = []
+    for mname, module in model.named_modules():
+        path = mname.split(".") if mname else []
+        prefix = mname + "." if mname else ""
+        parent = model.get_submodule(".".join(path[:-1])) if path else None
+        if isinstance(module, torch.nn.Conv2d):
+            kind, leaf = "conv", "kernel"
+        elif isinstance(module, torch.nn.Linear):
+            kind, leaf = "dense", "kernel"
+            if isinstance(parent, EncoderBlock) and path[-1] in (
+                    "query", "key", "value"):
+                kind = "heads_in"
+            elif isinstance(parent, EncoderBlock) and path[-1] == "out":
+                kind = "heads_out"
+        elif isinstance(module, (torch.nn.LayerNorm, _layers.BatchNorm)):
+            kind, leaf = "plain", "scale"
+        else:
+            continue
+        rows.append((prefix + "weight", path + [leaf], kind))
+        if getattr(module, "bias", None) is not None:
+            rows.append((prefix + "bias", path + ["bias"],
+                         "heads_bias" if kind == "heads_in" else "plain"))
+        if isinstance(module, _layers.BatchNorm):
+            rows.append((prefix + "running_mean", path + ["mean"], "stat"))
+            rows.append((prefix + "running_var", path + ["var"], "stat"))
+    for name in ("cls_token", "pos_embed"):
+        if name in dict(model.named_parameters(recurse=False)):
+            rows.append((name, [name], "plain"))
+    return rows
+
+
+def image_param_path(model, name):
+    """The JAX path string of the image model's parameter `name` (e.g.
+    "BottleneckBlock_3.Conv_1.weight" ->
+    "BottleneckBlock_3/Conv_1/kernel"), as `trainable=` matches it."""
+    for port, path, _ in _image_leaves(model):
+        if port == name:
+            return "/".join(path)
+    raise ValueError("unmapped parameter {}".format(name))
+
+
+def image_params_to_flax(model):
+    """The inverse of `image_params_from_flax` for a port image model:
+    {"params": nested float32 numpy arrays} plus "batch_stats" when the
+    model has BatchNorm."""
+    state = model.state_dict()
+    heads = getattr(model, "num_heads", None)
+    tree = {"params": {}, "batch_stats": {}}
+    for port, path, kind in _image_leaves(model):
+        arr = state[port].detach().to("cpu", torch.float32).numpy().copy()
+        if kind == "conv":
+            arr = arr.transpose(2, 3, 1, 0)
+        elif kind == "dense":
+            arr = arr.T
+        elif kind == "heads_in":
+            arr = arr.T.reshape(arr.shape[1], heads, -1)
+        elif kind == "heads_out":
+            arr = arr.T.reshape(heads, -1, arr.shape[0])
+        elif kind == "heads_bias":
+            arr = arr.reshape(heads, -1)
+        _put(tree["batch_stats" if kind == "stat" else "params"], path, arr)
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return {k: _contiguous(v) for k, v in tree.items()}
+
+
+__all__ = ["image_param_path", "image_params_from_flax",
+           "image_params_to_flax", "llama_param_path",
+           "llama_params_from_flax", "llama_params_to_flax",
+           "params_from_flax", "params_to_flax", "transformer_param_path"]

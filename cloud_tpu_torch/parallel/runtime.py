@@ -1,10 +1,13 @@
-"""One-device runtime: device choice, the counted d2h readback, and
-per-thread phase labels.
+"""One-device runtime: device choice, the counted host<->device
+transfers, and per-thread phase labels.
 
 The single-device subset of `cloud_tpu/parallel/runtime.py`. Every
 device->host read of the serving loop goes through `device_fetch`, so
 the d2h counters stay a census of fetch sites (one round trip per
-call, whatever the number of tensors fetched).
+call, whatever the number of tensors fetched). Every host->device feed
+of training data (the Trainer's batch feed, `prefetch_to_device`, the
+one-time resident upload) calls `record_h2d` first, so "zero example
+bytes after the upload" can be read off `transfer_stats()`.
 """
 
 import threading
@@ -14,7 +17,8 @@ import torch
 
 _phase = threading.local()
 _transfer_lock = threading.Lock()
-_transfer_stats = {"d2h_fetches": 0, "d2h_bytes": 0}
+_transfer_stats = {"h2d_transfers": 0, "h2d_bytes": 0,
+                   "d2h_fetches": 0, "d2h_bytes": 0}
 
 
 def default_device():
@@ -63,6 +67,43 @@ def _tensors(tree):
             yield from _tensors(value)
 
 
+def _host_leaves(tree):
+    if isinstance(tree, dict):
+        for value in tree.values():
+            yield from _host_leaves(value)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            yield from _host_leaves(value)
+    elif tree is not None:
+        yield tree
+
+
+def record_h2d(tree):
+    """Counts the host->device bytes about to be transferred for `tree`:
+    one transfer per host leaf (a numpy array, a CPU tensor or a Python
+    value, measured through `np.asarray`); a tensor already on a card
+    costs nothing and is skipped. Returns the byte count recorded, so
+    the one-time resident upload can report its own size."""
+    transfers = 0
+    total = 0
+    for leaf in _host_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.device.type != "cpu":
+                continue
+            nbytes = leaf.numel() * leaf.element_size()
+        else:
+            nbytes = getattr(leaf, "nbytes", None)
+            if nbytes is None:
+                nbytes = np.asarray(leaf).nbytes
+        transfers += 1
+        total += int(nbytes)
+    if transfers:
+        with _transfer_lock:
+            _transfer_stats["h2d_transfers"] += transfers
+            _transfer_stats["h2d_bytes"] += total
+    return total
+
+
 def record_d2h(tree):
     """Counts one device->host fetch about to be issued for `tree`: one
     round trip, bytes summed over its tensors. A tree with no tensor
@@ -95,18 +136,20 @@ def device_fetch(tree):
 
 
 def transfer_stats():
-    """A snapshot of the process-wide d2h counters."""
+    """A snapshot of the process-wide transfer counters (h2d and
+    d2h)."""
     with _transfer_lock:
         return dict(_transfer_stats)
 
 
 def reset_transfer_stats():
-    """Zeroes the d2h counters."""
+    """Zeroes the transfer counters."""
     with _transfer_lock:
         for key in _transfer_stats:
             _transfer_stats[key] = 0
 
 
 __all__ = ["default_device", "device_fetch", "process_index",
-           "record_d2h", "reset_transfer_stats", "resolve_device",
+           "record_d2h", "record_h2d", "reset_transfer_stats",
+           "resolve_device",
            "set_phase", "transfer_stats"]

@@ -3,8 +3,9 @@
 
 The Trainer runs where the model's parameters live (the port's models
 default to the CUDA card; build one with `device="cpu"` to train on the
-CPU). Each step is the JAX step's body in eager PyTorch: forward, the
-loss mean (weighted Keras semantics under `sample_weight`) plus
+CPU). Each step is the JAX step's body in eager PyTorch: the input
+cast's widening, forward (recomputed in the backward under `remat=True`),
+the loss mean (weighted Keras semantics under `sample_weight`) plus
 `aux_loss_weight` times the aux losses the forward left in the model's
 `aux_losses` (the MoE load-balancing losses, JAX's sown "losses"),
 backward, one optimizer update (every k-th step under gradient
@@ -14,6 +15,27 @@ device. Each epoch's metrics are reduced on the device and fetched once
 through `runtime.device_fetch`, on a background thread by default
 (`training.async_logs`).
 
+Data reaches the step from host arrays or streams through
+`data.prefetch_to_device` (counted host->device feeds, read ahead on a
+side stream on the card), narrowed on the wire by `input_cast=`, or, with
+`cache="device"`, from a `data.DeviceResidentDataset` gathered on the
+device with no example bytes crossing after the upload.
+
+`steps_per_execution=N` runs N steps per host round trip. JAX's one
+dispatch (a `lax.scan` of N steps) is, on the card, a CUDA graph of the
+train step captured once and replayed N times per group, reading static
+input buffers that the feed (or the resident gather, inside the graph)
+fills and the schedule's learning rate from a device tensor. A step
+that cannot be replayed that way (an MoE layer reads its expert group
+sizes on the host, dropout seeds a generator per step on the host,
+gradient accumulation alternates two step bodies, SGD reads a tensor
+learning rate on the host) runs its groups as a loop, and the log says
+so; a step that fails to capture raises with the reason. On the CPU a
+group is a loop. `fit(warm_start=True)` / `warmup()` pay the one-off
+costs (the kernels' nvcc builds, cuDNN's algorithm choice, the graph's
+capture) before step 1 by a warm step whose effects on the state are
+undone.
+
 Around the loop, as in JAX: callbacks (`training.callbacks`), full
 train-state checkpoints (`save_checkpoint`, `restore_checkpoint`,
 `fit(resume_from=)`, `training.checkpoint`) with an exact mid-epoch
@@ -21,16 +43,17 @@ resume, `fit(resume="auto")` (`training.resilience`) and frozen
 parameters (`trainable=`).
 
 Example:
-    model = TransformerLM(..., device="cuda")
-    trainer = Trainer(model, optimizer="adamw", metrics=("accuracy",))
-    history = trainer.fit(x_train, y_train, epochs=2, batch_size=8,
-                          callbacks=[MetricsLogger("run/metrics.jsonl")],
-                          resume="auto", resume_from="run/ckpt")
+    model = ResNet50(num_classes=1000)
+    trainer = Trainer(model, optimizer=make_optimizer("sgd", 0.1),
+                      train_kwargs={"train": True},
+                      eval_kwargs={"train": False},
+                      steps_per_execution=8)
+    history = trainer.fit(x_train, y_train, epochs=2, batch_size=256,
+                          cache="device", input_cast="bfloat16",
+                          warm_start=True)
 
 Not ported yet (they raise NotImplementedError naming their ROADMAP
-item): meshes and sharding rules, ZeRO/FSDP, remat,
-steps_per_execution > 1, device-resident data, input casts, warm
-starts, and the optimizers other than adam, adamw and sgd.
+item): meshes and sharding rules, ZeRO/FSDP.
 """
 
 import contextlib
@@ -49,10 +72,24 @@ import torch.nn.functional as F
 from cloud_tpu_torch.parallel import runtime
 from cloud_tpu_torch.training import async_logs as async_logs_lib
 from cloud_tpu_torch.training import data as data_lib
+from cloud_tpu_torch.training import optimizers as optimizers_lib
 
 logger = logging.getLogger("cloud_tpu_torch")
 
 _NOT_PORTED = "is not ported yet (ROADMAP §1: Modules to port, item"
+_captures = [0]
+
+
+def graph_captures():
+    """How many train-step CUDA graphs this process has captured (a fit
+    after `warmup()` / `warm_start=True` captures none on step 1)."""
+    return _captures[0]
+
+
+def _layers():
+    from cloud_tpu_torch.models import _layers as layers
+
+    return layers
 
 
 # -- Losses (outputs-in, per-example-loss-out) ---------------------------
@@ -166,24 +203,38 @@ def _sgd(params, learning_rate=None):
                            momentum=0.9, dampening=0.0, nesterov=False)
 
 
-def _not_ported(name, reason):
-    def make(params, learning_rate=None):
-        raise NotImplementedError(
-            "optimizer {!r} {} 4; {}).".format(name, _NOT_PORTED, reason))
-    return make
+def _rmsprop(params, learning_rate=None):
+    return optimizers_lib.RMSprop(params, lr=_lr(learning_rate, 1e-3))
+
+
+def _adagrad(params, learning_rate=None):
+    return optimizers_lib.Adagrad(params, lr=_lr(learning_rate, 1e-2))
+
+
+def _adafactor(params, learning_rate=None):
+    # optax.adafactor() applies no learning rate (the step is relative to
+    # each parameter's RMS); a given rate scales it, as optax does.
+    lr = None if learning_rate is None else _lr(learning_rate, None)
+    return optimizers_lib.Adafactor(params, lr=lr)
+
+
+def _lamb(params, learning_rate=None):
+    return optimizers_lib.Lamb(params, lr=_lr(learning_rate, 1e-3))
+
+
+def _lion(params, learning_rate=None):
+    return optimizers_lib.Lion(params, lr=_lr(learning_rate, 1e-4))
 
 
 OPTIMIZERS = {
     "adam": _adam,
     "adamw": _adamw,
     "sgd": _sgd,
-    "rmsprop": _not_ported("rmsprop", "optax puts eps inside the sqrt "
-                           "and decays 0.9; torch.optim.RMSprop does not"),
-    "adagrad": _not_ported("adagrad", "optax starts the accumulator at "
-                           "0.1; torch.optim.Adagrad at 0"),
-    "adafactor": _not_ported("adafactor", "no torch.optim counterpart"),
-    "lamb": _not_ported("lamb", "no torch.optim counterpart"),
-    "lion": _not_ported("lion", "no torch.optim counterpart"),
+    "rmsprop": _rmsprop,
+    "adagrad": _adagrad,
+    "adafactor": _adafactor,
+    "lamb": _lamb,
+    "lion": _lion,
 }
 
 
@@ -201,6 +252,101 @@ def make_optimizer(name, learning_rate=None):
         return opt
 
     return make
+
+
+def _copy_into(dst, src):
+    """Copies the tensors of tree `src` into tree `dst` (None leaves
+    skipped)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, t in zip(dst, src):
+            _copy_into(d, t)
+    elif dst is not None:
+        dst.copy_(src)
+
+
+class _CapturedStep:
+    """One train step captured as a CUDA graph (the card's counterpart
+    of JAX's one dispatch), replayed once per step of a group.
+
+    Host-fed: the step reads static input buffers that `run` fills from
+    the fed batch (a copy on the device). Resident: the step gathers its
+    batch inside the graph from the resident dataset at a device
+    position, `perm[pos * B + arange(B)]`, and advances the position, so
+    a replay moves no byte across the wire; `start_epoch` sets the
+    epoch's order and position. The schedule's rate is a device tensor
+    the Trainer fills before each replay. Every kernel is built, every
+    algorithm chosen and every lazy optimizer state made by the warm
+    step before the capture; the flash kernels' tensor maps, encoded on
+    the host at capture, hold the static buffers' addresses, which the
+    graph's memory pool keeps for every replay.
+    """
+
+    def __init__(self, trainer, resident, example):
+        self.trainer = trainer
+        self.resident = resident
+        device = trainer.device
+        if resident is None:
+            self.static = _tree_map(
+                lambda t: None if t is None else t.detach().clone(),
+                example)
+        else:
+            self.perm = torch.arange(resident.num_examples, device=device)
+            self.pos = torch.zeros((), dtype=torch.int64, device=device)
+            self.offsets = torch.arange(resident.batch_size, device=device)
+        self.graph = None
+        self.keys = None
+        self.out = None
+
+    def inputs(self):
+        """(x, y, w) of one step: the static buffers, or the resident
+        gather at the device position (which it advances)."""
+        if self.resident is None:
+            return Trainer._split(self.static, len(self.static) == 3)
+        idx = self.perm.index_select(
+            0, self.pos * self.resident.batch_size + self.offsets)
+        self.pos.add_(1)
+        batch = self.resident.gather(idx)
+        kind = self.resident.kind
+        if kind == "xyw":
+            return batch
+        if kind == "xy":
+            return batch[0], batch[1], None
+        return batch, None, None
+
+    def capture(self):
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the metric reader and data threads may touch the
+        # card while this thread captures.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            logs = self.trainer._step(*self.inputs(), count=False,
+                                      captured=True)
+            self.keys = list(logs)
+            self.out = torch.stack([logs[k].float() for k in self.keys])
+        self.graph = graph
+        _captures[0] += 1
+
+    def start_epoch(self, order, start_step):
+        """The resident epoch's device order and first position."""
+        self.perm.copy_(order)
+        self.pos.fill_(int(start_step))
+
+    def run(self, x=None, y=None, w=None):
+        """One replay (the fed batch copied into the static buffers
+        first); advances the host counters as the eager step does and
+        returns the step's logs (device scalars, copied out of the
+        graph's output)."""
+        trainer = self.trainer
+        if self.resident is None:
+            _copy_into(self.static, (x, y) if w is None else (x, y, w))
+        trainer._set_lr()
+        self.graph.replay()
+        trainer.state.updates += 1
+        trainer.state.step += 1
+        out = self.out.clone()
+        return {k: out[i] for i, k in enumerate(self.keys)}
 
 
 def _per_example_view(v, batch_dim):
@@ -318,18 +464,25 @@ class TrainState:
 
 
 def _param_paths(model):
-    """name -> the path string `trainable=` matches: for TransformerLM
-    and LlamaLM the JAX package's parameter path (through the
-    converters' name map, so a regex written for the JAX Trainer freezes
-    the same weights); for any other module the dotted name."""
+    """name -> the path string `trainable=` matches: for TransformerLM,
+    LlamaLM and the image families the JAX package's parameter path
+    (through the converters' name map, so a regex written for the JAX
+    Trainer freezes the same weights); for any other module the dotted
+    name."""
     from cloud_tpu_torch.models import convert
     from cloud_tpu_torch.models.llama import LlamaLM
     from cloud_tpu_torch.models.transformer import TransformerLM
+
+    from cloud_tpu_torch.models.mnist import MLP, ConvNet
+    from cloud_tpu_torch.models.resnet import ResNet
+    from cloud_tpu_torch.models.vit import ViT
 
     if isinstance(model, TransformerLM):
         path_of = convert.transformer_param_path
     elif isinstance(model, LlamaLM):
         path_of = convert.llama_param_path
+    elif isinstance(model, (MLP, ConvNet, ResNet, ViT)):
+        path_of = lambda name: convert.image_param_path(model, name)
     else:
         path_of = str
     return {name: path_of(name) for name, _ in model.named_parameters()}
@@ -392,18 +545,29 @@ class Trainer:
                 over the parameters' paths (`trainable_mask`): the others
                 are frozen (`requires_grad` off when the Trainer builds):
                 no update, no weight decay, no optimizer state.
+            remat: recompute the forward in the backward (`jax.checkpoint`
+                of the loss in JAX; `torch.utils.checkpoint`, non-reentrant,
+                here): activation memory for FLOPs. The recompute draws the
+                step's dropout masks again from a generator seeded as the
+                first forward's, and BatchNorm moves its running averages
+                once (in the first forward).
+            steps_per_execution: N optimizer steps per host round trip
+                (Keras `steps_per_execution`): on the card a CUDA graph of
+                the step replayed N times a group (module doc), on the
+                CPU a loop; the history is the per-step mean, as JAX's.
         """
-        unported = {"mesh": (mesh is not None, 6),
-                    "param_sharding_rules": (param_sharding_rules
-                                             is not None, 6),
-                    "zero1": (bool(zero1), 6), "fsdp": (bool(fsdp), 6),
-                    "remat": (bool(remat), 2),
-                    "steps_per_execution > 1": (
-                        int(steps_per_execution) != 1, 2)}
-        for name, (used, item) in unported.items():
+        unported = {"mesh": mesh is not None,
+                    "param_sharding_rules": param_sharding_rules is not None,
+                    "zero1": bool(zero1), "fsdp": bool(fsdp)}
+        for name, used in unported.items():
             if used:
                 raise NotImplementedError(
-                    "Trainer({}) {} {}).".format(name, _NOT_PORTED, item))
+                    "Trainer({}) {} 6).".format(name, _NOT_PORTED))
+        self.steps_per_execution = int(steps_per_execution)
+        if self.steps_per_execution < 1:
+            raise ValueError("steps_per_execution must be >= 1; got "
+                             "{}.".format(steps_per_execution))
+        self.remat = bool(remat)
         if not isinstance(model, torch.nn.Module):
             raise TypeError("model must be a torch.nn.Module; got "
                             "{!r}.".format(type(model)))
@@ -444,6 +608,14 @@ class Trainer:
         self._metric_reader = None
         self._pending_history = []
         self._takes_generator = _accepts(model.forward, "generator")
+        self._widen = None
+        # Captured step graphs by geometry, the schedule's device rate,
+        # and the geometries already warmed.
+        self._graphs = {}
+        self._lr_tensor = None
+        self._warmed = set()
+        self._spe_route = None
+        self._resident = None
 
     @property
     def device(self):
@@ -494,6 +666,7 @@ class Trainer:
         else:
             optimizer = spec(params)
         self.optimizer = optimizer
+        self._choose_spe_route()
         ema = None
         if self.ema_decay is not None:
             ema = {n: p.detach().clone()
@@ -506,19 +679,9 @@ class Trainer:
     # -- steps ----------------------------------------------------------
 
     def _to_device(self, tree):
-        dev = self.device
-
-        def put(a):
-            if a is None:
-                return None
-            t = torch.as_tensor(np.asarray(a))
-            if t.dtype.is_floating_point:
-                t = t.float()
-            elif t.dtype != torch.bool:
-                t = t.long()
-            return t.to(dev, non_blocking=True)
-
-        return _tree_map(put, tree)
+        """A host batch as tensors on the model's device (a counted
+        feed, `data.device_put`)."""
+        return data_lib.device_put(tree, self.device)
 
     def _step_generator(self, step):
         """The dropout generator of train step `step`: seeded from the
@@ -566,17 +729,66 @@ class Trainer:
             torch._foreach_add_(shadow, [params[n].detach() for n in names],
                                 alpha=1.0 - self.ema_decay)
 
-    def _train_step(self, batch, weighted):
-        if weighted:
-            x, y, w = self._to_device(batch)
-        else:
-            x, y = self._to_device(batch)
-            w = None
-        self.model.train()
+    def _forward(self, x, step, captured):
+        """The training forward at train step `step`. The dropout
+        generator is seeded from the step (none inside a captured graph:
+        the graph route is taken only without dropout). Under remat the
+        forward runs inside `torch.utils.checkpoint` (non-reentrant): the
+        recompute makes the same generator afresh (checkpoint restores
+        only the global RNGs) and raises the recompute flag, so BatchNorm
+        leaves its running averages as the first forward moved them."""
         kwargs = dict(self.train_kwargs)
-        if self._takes_generator:
-            kwargs["generator"] = self._step_generator(self.state.step)
-        outputs = self.model(x, **kwargs)
+        draw = self._takes_generator and not captured
+        if not self.remat:
+            if draw:
+                kwargs["generator"] = self._step_generator(step)
+            return self.model(x, **kwargs)
+        calls = [0]
+
+        def run(x):
+            run_kwargs = dict(kwargs)
+            if draw:
+                run_kwargs["generator"] = self._step_generator(step)
+            calls[0] += 1
+            previous = _layers().set_recomputing(calls[0] > 1)
+            try:
+                return self.model(x, **run_kwargs)
+            finally:
+                _layers().set_recomputing(previous)
+
+        from torch.utils import checkpoint as checkpoint_lib
+
+        return checkpoint_lib.checkpoint(run, x, use_reentrant=False,
+                                         preserve_rng_state=not captured)
+
+    def _set_lr(self):
+        """The schedule's rate for the next update into the optimizer:
+        into the device tensor the captured graph reads (a fill, no
+        copy from the host), else into each group as a float."""
+        schedule = getattr(self.optimizer, "lr_schedule", None)
+        if schedule is None:
+            return
+        lr = float(schedule(self.state.updates))
+        if self._lr_tensor is not None:
+            self._lr_tensor.fill_(lr)
+            # A restored optimizer state dict brings its own rate back.
+            for group in self.optimizer.param_groups:
+                group["lr"] = self._lr_tensor
+        else:
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+
+    def _step(self, x, y, w, count=True, captured=False):
+        """One train step on device tensors (x possibly narrowed by the
+        input cast): forward, loss, backward, the update (every k-th
+        step), EMA; returns the step's logs (device scalars). count:
+        advance the host step and update counters (a captured or warming
+        step leaves them to its caller)."""
+        if self._widen is not None:
+            x = self._widen(x)
+        self.model.train()
+        step = self.state.step
+        outputs = self._forward(x, step, captured)
         per_example = self.loss_fn(outputs, y)
         if w is not None:
             # Weighted Keras semantics: mean(per_example * w), not
@@ -589,48 +801,209 @@ class Trainer:
                 aux.to(loss.dtype) for aux in sown)
         k = self.gradient_accumulation_steps
         (loss / k if k > 1 else loss).backward()
-        self.state.step += 1
-        if self.state.step % k == 0:
-            schedule = getattr(self.optimizer, "lr_schedule", None)
-            if schedule is not None:
-                lr = float(schedule(self.state.updates))
-                for group in self.optimizer.param_groups:
-                    group["lr"] = lr
+        if (step + 1) % k == 0:
+            if count:
+                self._set_lr()
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
-            self.state.updates += 1
             if self.state.ema is not None:
                 self._update_ema()
+            if count:
+                self.state.updates += 1
+        if count:
+            self.state.step += 1
         with torch.no_grad():
             mask = w if w is not None else torch.ones(
                 (_first_leaf(outputs).shape[0],), device=loss.device)
             logs = {"loss": loss.detach()}
             logs.update(self._metric_logs(_tree_map(torch.Tensor.detach,
                                                     outputs), y, mask,
-                                          weighted))
-            if weighted:
+                                          w is not None))
+            if w is not None:
                 logs["_batch_weight"] = w.sum()
         return logs
+
+    def _train_step(self, batch, weighted):
+        """Feeds one host batch ((x, y) or (x, y, w)) and runs one step
+        on it (the eager single-step path)."""
+        return self._run_fed(self._to_device(batch), weighted)
+
+    @staticmethod
+    def _split(batch, weighted):
+        if weighted:
+            return batch
+        x, y = batch
+        return x, y, None
+
+    def _run_fed(self, batch, weighted):
+        """One step on a fed (device) batch: the captured graph when one
+        was captured for its geometry, else eagerly."""
+        graph = self._graphs.get(self._geometry(batch, weighted))
+        if graph is not None:
+            return graph.run(*self._split(batch, weighted))
+        return self._step(*self._split(batch, weighted))
+
+    # -- steps_per_execution on the card: the captured step ---------------
+
+    def _choose_spe_route(self):
+        """How a group of `steps_per_execution` steps runs: "graph" (a
+        captured CUDA graph of the step, replayed per step) or "loop"
+        (eager steps), with the reason logged once when a card is there
+        but the step cannot be replayed from a graph."""
+        self._spe_route = "loop"
+        if self.steps_per_execution == 1 or self.device.type != "cuda":
+            return
+        from cloud_tpu_torch.models.moe import MoEMLP, TopKMoEMLP
+
+        reason = None
+        if self.gradient_accumulation_steps > 1:
+            reason = "gradient accumulation alternates two step bodies"
+        elif any(isinstance(m, (MoEMLP, TopKMoEMLP))
+                 for m in self.model.modules()):
+            reason = ("an MoE layer reads its expert group sizes on the "
+                      "host every step")
+        elif self._takes_generator and getattr(self.model, "dropout_rate",
+                                               0.0) > 0:
+            reason = "dropout seeds its generator per step on the host"
+        elif (getattr(self.optimizer, "lr_schedule", None) is not None
+              and isinstance(self.optimizer, torch.optim.SGD)):
+            reason = ("torch.optim.SGD reads a tensor learning rate on the "
+                      "host")
+        if reason is not None:
+            logger.info("steps_per_execution=%d: each group runs as a loop "
+                        "of eager steps (%s).", self.steps_per_execution,
+                        reason)
+            return
+        self._spe_route = "graph"
+        for group in self.optimizer.param_groups:
+            if "capturable" in group:
+                group["capturable"] = True
+        if getattr(self.optimizer, "lr_schedule", None) is not None:
+            self._lr_tensor = torch.zeros((), device=self.device)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self._lr_tensor
+
+    @staticmethod
+    def _geometry(batch, weighted, resident=None):
+        """The key a captured graph is kept under: the fed batch's leaf
+        shapes and dtypes (or the resident dataset), and weighting."""
+        if resident is not None:
+            return ("resident", id(resident), weighted)
+        leaves = []
+        _tree_map(lambda t: leaves.append(
+            None if t is None else (tuple(t.shape), t.dtype)), batch)
+        return ("fed", tuple(leaves), weighted)
+
+    def _snapshot(self):
+        """The state a warm step may touch: parameters, buffers (the
+        BatchNorm statistics), the optimizer's state tensors and the EMA
+        shadow, cloned."""
+        model = {k: v.detach().clone()
+                 for k, v in self.model.state_dict().items()}
+        opt = {id(p): {k: v.clone() for k, v in st.items()
+                       if isinstance(v, torch.Tensor)}
+               for p, st in self.optimizer.state.items()}
+        ema = (None if self.state.ema is None else
+               {k: v.clone() for k, v in self.state.ema.items()})
+        return model, opt, ema
+
+    @torch.no_grad()
+    def _restore(self, snapshot):
+        """Puts a `_snapshot` back in place (the tensors keep their
+        storage, so a captured graph still reads them); optimizer state
+        the warm step created is zeroed (the start value of the
+        torch.optim optimizers' lazy state: a zero momentum buffer, zero
+        moments, step 0)."""
+        model, opt, ema = snapshot
+        for k, v in self.model.state_dict().items():
+            v.copy_(model[k])
+        for p, st in self.optimizer.state.items():
+            saved = opt.get(id(p), {})
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor):
+                    if k in saved:
+                        v.copy_(saved[k])
+                    else:
+                        v.zero_()
+        if ema is not None:
+            for k, v in self.state.ema.items():
+                v.copy_(ema[k])
+        for p in self.model.parameters():
+            p.grad = None
+
+    def _warm_step(self, run):
+        """Runs `run()` (one step) to pay its one-off costs (nvcc builds,
+        cuDNN's algorithm choice, lazy optimizer state, cuBLAS
+        workspaces), then undoes its effects on the state. On a card it
+        runs on a side stream, as a CUDA graph capture wants."""
+        snapshot = self._snapshot()
+        if self.device.type == "cuda":
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        else:
+            run()
+        self._restore(snapshot)
+
+    def _capture(self, key, source, example):
+        """Captures the step as a CUDA graph for geometry `key` (warmed
+        first) and keeps it; `source` makes the step's (x, y, w) inside
+        the graph, `example` is a fed batch of the geometry for the warm
+        step."""
+        graph = _CapturedStep(self, source, example)
+        try:
+            self._warm_step(lambda: self._step(*graph.inputs(), count=False,
+                                               captured=True))
+            graph.capture()
+        except Exception as e:
+            raise RuntimeError(
+                "steps_per_execution={}: the train step of {} cannot be "
+                "captured as a CUDA graph ({}: {}); run it with "
+                "steps_per_execution=1.".format(
+                    self.steps_per_execution, type(self.model).__name__,
+                    type(e).__name__, e)) from e
+        # One captured step at a time: a new geometry's graph releases
+        # the last one's memory pool.
+        self._graphs = {key: graph}
+        return graph
+
+    def _ensure_graph(self, batch, weighted, resident=None):
+        """The captured graph of this geometry (captured on first use),
+        or None on the loop route."""
+        if self._spe_route != "graph":
+            return None
+        key = self._geometry(batch, weighted, resident)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._capture(key, resident, batch)
+        return graph
 
     # -- fit ------------------------------------------------------------
 
     def fit(self, x=None, y=None, epochs=1, batch_size=32, shuffle=True,
             validation_data=None, validation_split=0.0, initial_epoch=0,
             callbacks=(), steps_per_epoch=None, verbose=True,
-            sample_weight=None, class_weight=None, resume_from=None,
-            resume=None, cache=None, input_cast=None, warm_start=False,
-            async_logging=True, retries=None):
+            resume_from=None, prefetch=2, sample_weight=None,
+            class_weight=None, cache=None, input_cast=None,
+            async_logging=True, warm_start=False, resume=None,
+            retries=None):
         """Trains the model; returns a history dict of per-epoch logs
         (the epoch means of loss and metrics, steps_per_sec, and val_*
         from `validation_data` / `validation_split`).
 
-        As the JAX Trainer: array inputs, shuffled per epoch from `seed`
-        (`data.epoch_permutation`), the tail batch dropped; `epochs` is
-        the final epoch bound (`initial_epoch` the first);
-        `steps_per_epoch` caps each epoch; `sample_weight` /
-        `class_weight` weight the loss (mean(per_example * w)) and the
-        metrics (weighted means); `validation_split` holds out the last
-        fraction of the arrays before shuffling.
+        As the JAX Trainer: array inputs (shuffled per epoch from `seed`,
+        `data.epoch_permutation`, the tail batch dropped) or any dataset
+        `data.as_dataset` takes (a list of batches, `GeneratorDataset`,
+        `NpzShardDataset`, `ThreadedDataset`, re-iterated each epoch;
+        a batch of another size than the first runs as a single eager
+        step); `epochs` is the final epoch bound (`initial_epoch` the
+        first); `steps_per_epoch` caps each epoch (a dataset's own
+        applies when unset); `sample_weight` / `class_weight` weight the
+        loss (mean(per_example * w)) and the metrics (weighted means);
+        `validation_split` holds out the last fraction of the arrays
+        before shuffling.
 
         callbacks: `training.callbacks.Callback`s; each sees the Trainer
             (`stop_training`, `request_stop()`, `planned_epochs`,
@@ -651,13 +1024,24 @@ class Trainer:
             thread in one coalesced read (callbacks get a `LazyLogs`
             that resolves when read); False reads them at the epoch
             boundary. The values are the same either way.
+        prefetch: device read-ahead depth of the host feed
+            (`data.prefetch_to_device`); 0 feeds synchronously.
+        cache: "device" uploads the dataset to the device once
+            (`data.DeviceResidentDataset`) and gathers every batch
+            there in the host path's order: no example bytes cross
+            after the upload (`runtime.transfer_stats()`). Array inputs
+            within the memory budget only; anything else streams from
+            the host after one warning line.
+        input_cast: "bfloat16" (float leaves cross as bf16, any input)
+            or "uint8" (affine-quantized, array inputs): the features
+            cross narrow (or stay narrow in the resident copy) and the
+            step's first operation widens them to f32.
+        warm_start: pay the one-off costs before the epoch loop (the
+            kernels' nvcc builds, cuDNN's algorithm choice at the fit's
+            shapes, the steps_per_execution graph's capture) by a warm
+            step whose effects on the state are undone: step 1 moves
+            none of `_build.build_count()` and `graph_captures()`.
         """
-        for name, value, item in (("cache", cache, 4),
-                                  ("input_cast", input_cast, 4),
-                                  ("warm_start", warm_start or None, 2)):
-            if value not in (None, "none"):
-                raise NotImplementedError("fit({}=...) {} {}).".format(
-                    name, _NOT_PORTED, item))
         kwargs = dict(
             x=x, y=y, epochs=epochs, batch_size=batch_size, shuffle=shuffle,
             validation_data=validation_data,
@@ -665,7 +1049,8 @@ class Trainer:
             callbacks=callbacks, steps_per_epoch=steps_per_epoch,
             verbose=verbose, sample_weight=sample_weight,
             class_weight=class_weight, resume_from=resume_from,
-            async_logging=async_logging)
+            prefetch=prefetch, cache=cache, input_cast=input_cast,
+            async_logging=async_logging, warm_start=warm_start)
         if resume in (None, False, "none"):
             if retries is not None:
                 raise ValueError("retries= only applies with resume='auto'.")
@@ -681,7 +1066,8 @@ class Trainer:
                   shuffle=True, validation_data=None, validation_split=0.0,
                   initial_epoch=0, callbacks=(), steps_per_epoch=None,
                   verbose=True, sample_weight=None, class_weight=None,
-                  resume_from=None, async_logging=True, data_seed=None,
+                  resume_from=None, prefetch=2, cache=None, input_cast=None,
+                  async_logging=True, warm_start=False, data_seed=None,
                   history=None):
         """One fit attempt: `fit`'s body without the `resume="auto"`
         dispatch. The retry loop calls it with two extras: `data_seed`
@@ -730,14 +1116,21 @@ class Trainer:
         dataset = data_lib.as_dataset(
             x, y, batch_size=batch_size, shuffle=shuffle,
             seed=self.seed if data_seed is None else data_seed, **ds_kwargs)
-        weighted = dataset.sample_weight is not None
+        arrays = isinstance(dataset, data_lib.ArrayDataset)
+        if sample_weight is not None and not arrays:
+            raise ValueError(
+                "sample_weight= needs array inputs (datasets carry their "
+                "own weights by yielding (x, y, w) via "
+                "ArrayDataset(sample_weight=...)).")
+        weighted = arrays and dataset.sample_weight is not None
         if steps_per_epoch is None:
-            steps_per_epoch = dataset.steps_per_epoch
+            steps_per_epoch = getattr(dataset, "steps_per_epoch", None)
         # The JAX Trainer peeks one batch to build (which draws epoch 0's
         # order): the training epochs then draw from epoch 1 on. The peek
         # is kept so the batches match the JAX package's.
         sample = next(iter(dataset))
-        self.build(sample[0] if isinstance(sample, tuple) else sample)
+        sample_x = sample[0] if isinstance(sample, tuple) else sample
+        self.build(sample_x)
         start_step = 0
         if resume_from is not None:
             from cloud_tpu_torch.training import checkpoint as checkpoint_lib
@@ -755,6 +1148,18 @@ class Trainer:
                 initial_epoch, start_step = self._apply_data_state(
                     dataset, meta.get("data_state"), initial_epoch,
                     data_seed)
+
+        policy = self._input_policy(input_cast, dataset, sample_x)
+        self._widen = None if policy is None else policy.widen
+        resident = None
+        if cache not in (None, "none", False):
+            if cache != "device":
+                raise ValueError(
+                    "Unknown cache={!r}; expected 'device'.".format(cache))
+            resident = self._resident_for(dataset, policy)
+        if warm_start:
+            self._warm(resident=resident, sample=sample, policy=policy,
+                       weighted=weighted)
 
         history = {} if history is None else history
         self.stop_training = False
@@ -776,9 +1181,16 @@ class Trainer:
             cb.set_trainer(self)
             cb.on_train_begin()
         try:
-            self._fit_epochs(dataset, epochs, steps_per_epoch,
-                             validation_data, batch_size, callbacks, history,
-                             verbose, initial_epoch, weighted, start_step)
+            if resident is not None:
+                self._fit_epochs_resident(
+                    resident, epochs, steps_per_epoch, validation_data,
+                    batch_size, callbacks, history, verbose, initial_epoch,
+                    start_step)
+            else:
+                self._fit_epochs(dataset, epochs, steps_per_epoch,
+                                 validation_data, batch_size, callbacks,
+                                 history, verbose, initial_epoch, weighted,
+                                 start_step, prefetch, policy)
         finally:
             runtime.set_phase(None)
             # Every exit path: the deferred history first (a failed
@@ -812,23 +1224,151 @@ class Trainer:
                 raise teardown_error
         return history
 
+    @staticmethod
+    def _input_policy(input_cast, dataset, sample_x):
+        """The fit's `InputCast` (None without one): calibrated on the
+        full arrays, or (bf16 on a stream) on the sample."""
+        if input_cast in (None, "none"):
+            return None
+        if isinstance(dataset, data_lib.ArrayDataset):
+            return data_lib.make_input_cast(input_cast, dataset.x)
+        if (input_cast in ("bfloat16", "bf16")
+                or isinstance(input_cast, data_lib.InputCast)):
+            return data_lib.make_input_cast(input_cast, sample_x)
+        raise ValueError(
+            "input_cast='uint8' calibrates lo/scale from the full arrays "
+            "and needs array inputs; streaming datasets support "
+            "input_cast='bfloat16'.")
+
+    def _resident_for(self, dataset, policy):
+        """The dataset's resident copy: the last fit's when this fit is
+        over the same arrays (the same objects), batch geometry, order
+        and cast (no second upload, and its captured step is reused),
+        else a new upload (`DeviceResidentDataset.build`, which may fall
+        back to None)."""
+        arrays = data_lib._leaves(dataset.x) + [dataset.y,
+                                                 dataset.sample_weight]
+        key = (dataset.num_examples, dataset.batch_size, dataset.shuffle,
+               dataset.seed, dataset.drop_remainder,
+               None if policy is None else policy.cache_key)
+        cached = self._resident
+        if cached is not None and cached[0] == key and len(cached[1]) == \
+                len(arrays) and all(a is b for a, b in zip(cached[1],
+                                                           arrays)):
+            resident = cached[2]
+            resident.source = dataset
+            return resident
+        resident = data_lib.DeviceResidentDataset.build(
+            dataset, input_cast=policy, device=self.device)
+        self._resident = (None if resident is None
+                          else (key, arrays, resident))
+        return resident
+
+    @staticmethod
+    def _host_cast(batch, policy):
+        """A host batch with the input cast's narrowing on its features."""
+        if policy is None:
+            return batch
+        if isinstance(batch, tuple) and len(batch) in (2, 3):
+            return (policy.host_cast(batch[0]),) + tuple(batch[1:])
+        return policy.host_cast(batch)
+
+    def _warm(self, resident=None, sample=None, policy=None,
+              weighted=False):
+        """The one-off costs of the fit's step, paid before step 1 (once
+        per geometry): the graph's capture on the graph route (after its
+        own warm step), else a warm eager step whose effects are undone."""
+        if resident is not None:
+            key = self._geometry(None, resident.kind == "xyw", resident)
+            fed = None
+        else:
+            fed = self._to_device(self._host_cast(sample, policy))
+            key = self._geometry(fed, weighted)
+        if key in self._warmed:
+            return
+        if self._spe_route == "graph":
+            self._ensure_graph(fed, weighted, resident)
+        elif resident is not None:
+            idx = torch.arange(resident.batch_size, device=self.device)
+            batch = resident.gather(idx)
+            self._warm_step(lambda: self._step(
+                *self._split(batch, resident.kind == "xyw"), count=False))
+        else:
+            self._warm_step(lambda: self._step(*self._split(fed, weighted),
+                                               count=False))
+        self._warmed.add(key)
+
+    def warmup(self, x, y=None, batch_size=32, sample_weight=None,
+               input_cast=None, cache=None, include_eval=False,
+               include_predict=False):
+        """Pays a fit's one-off costs for a data geometry ahead of (and
+        without) training: the standalone form of
+        `fit(warm_start=True)`. Builds the model from a sample batch, runs
+        a warm step whose effects on the state are undone (the nvcc
+        builds of the path's kernels, cuDNN's algorithm choice, lazy
+        optimizer state) and, with steps_per_execution > 1 on the card,
+        captures the step's CUDA graph. A later fit over the same
+        geometry (batch size, weighting, input_cast, cache) starts with
+        none of them; with cache="device", the same arrays and fit's
+        default shuffle, the fit also reuses the warmed upload.
+        include_eval / include_predict also run one evaluation /
+        prediction forward.
+
+        Returns {"builds": nvcc builds so far, "captures": graphs
+        captured so far}."""
+        from cloud_tpu_torch.ops import _build
+
+        ds_kwargs = {}
+        if sample_weight is not None:
+            ds_kwargs["sample_weight"] = np.asarray(sample_weight,
+                                                    np.float32)
+        # Shuffled as fit's default, so that a resident fit reuses the
+        # warmed upload (its key holds the order).
+        dataset = data_lib.as_dataset(x, y, batch_size=batch_size,
+                                      shuffle=True, seed=self.seed,
+                                      **ds_kwargs)
+        weighted = (isinstance(dataset, data_lib.ArrayDataset)
+                    and dataset.sample_weight is not None)
+        sample = next(iter(dataset))
+        if not isinstance(sample, tuple):
+            raise ValueError("warmup() needs labels y: its warm step is a "
+                             "train step on the sample batch.")
+        sample_x = sample[0]
+        self.build(sample_x)
+        policy = self._input_policy(input_cast, dataset, sample_x)
+        self._widen = None if policy is None else policy.widen
+        resident = None
+        if cache not in (None, "none", False):
+            resident = self._resident_for(dataset, policy)
+        self._warm(resident=resident, sample=sample, policy=policy,
+                   weighted=weighted)
+        if include_eval:
+            self.evaluate(sample[0], sample[1], batch_size=batch_size,
+                          verbose=False)
+        if include_predict:
+            self.predict(sample_x, batch_size=batch_size)
+        return {"builds": _build.build_count(),
+                "captures": graph_captures()}
+
     def _fit_epochs(self, dataset, epochs, steps_per_epoch, validation_data,
                     batch_size, callbacks, history, verbose, initial_epoch,
-                    weighted, start_step):
+                    weighted, start_step, prefetch=2, policy=None):
         # The global step at epoch entry; current_data_state subtracts
         # the epoch's base from the live step counter.
         host_base = self.state.step
+        spe = self.steps_per_execution
         for epoch in range(initial_epoch, epochs):
-            epoch_start = min(int(start_step) if epoch == initial_epoch
-                              else 0, steps_per_epoch)
+            epoch_start = int(start_step) if epoch == initial_epoch else 0
+            if steps_per_epoch is not None:
+                epoch_start = min(epoch_start, steps_per_epoch)
             self._data_progress = {
                 "epoch": epoch,
                 "epoch_base": host_base - epoch_start,
                 # Before iteration advances it: the value this epoch's
                 # permutation draws from.
-                "dataset_epoch": int(dataset._epoch),
+                "dataset_epoch": int(getattr(dataset, "_epoch", 0)),
                 "steps_per_epoch": steps_per_epoch,
-                "data_seed": dataset.seed,
+                "data_seed": getattr(dataset, "seed", None),
             }
             for cb in callbacks:
                 cb.on_epoch_begin(epoch)
@@ -836,21 +1376,124 @@ class Trainer:
             count = 0
             t0 = time.time()
             runtime.set_phase("step")
-            batches = itertools.islice(iter(dataset), epoch_start,
-                                       steps_per_epoch)
-            for batch in batches:
-                if self._abort_epoch:
+            limit = (None if steps_per_epoch is None
+                     else steps_per_epoch - epoch_start)
+            host = self._epoch_batches(dataset, epoch_start)
+            if policy is not None:
+                host = (self._host_cast(b, policy) for b in host)
+            feeder = data_lib.prefetch_to_device(
+                host, size=prefetch, limit=limit, device=self.device)
+            steady = None
+            while not self._abort_epoch:
+                # A group of up to steps_per_execution fed batches; a
+                # batch of another size than the epoch's first (a ragged
+                # tail) runs as a single eager step.
+                group = list(itertools.islice(feeder, spe))
+                if not group:
                     break
                 if self._chaos is not None:
-                    self._chaos.pre_dispatch(host_base + count, 1)
-                step_logs.append(self._train_step(batch, weighted))
-                count += 1
-                probe, self._resume_probe = self._resume_probe, None
-                if probe is not None:
-                    probe.first_step()
+                    self._chaos.pre_dispatch(host_base + count, len(group))
+                for batch in group:
+                    if self._abort_epoch:
+                        break
+                    lead = _first_leaf(batch).shape[0]
+                    if steady is None:
+                        steady = lead
+                    if spe > 1 and lead == steady:
+                        self._ensure_graph(batch, weighted)
+                    step_logs.append(self._run_fed(batch, weighted))
+                    count += 1
+                    probe, self._resume_probe = self._resume_probe, None
+                    if probe is not None:
+                        probe.first_step()
             host_base += count
             if not (self._abort_epoch and count == 0):
                 # An aborted epoch of zero steps has no metrics.
+                self._post_epoch_logs(step_logs, count, t0, epoch,
+                                      validation_data, batch_size,
+                                      callbacks, history, verbose)
+            if self.stop_training:
+                break
+
+    @staticmethod
+    def _epoch_batches(dataset, start_step):
+        """One epoch of host batches from batch `start_step` on (an
+        `ArrayDataset` slices its permutation; any other dataset drops
+        the first batches)."""
+        if isinstance(dataset, data_lib.ArrayDataset):
+            return dataset.iter_from(start_step)
+        it = iter(dataset)
+        return itertools.islice(it, int(start_step), None) if start_step \
+            else it
+
+    def _fit_epochs_resident(self, resident, epochs, steps_per_epoch,
+                             validation_data, batch_size, callbacks, history,
+                             verbose, initial_epoch, start_step):
+        """The device-resident epoch loop: each batch is gathered on the
+        device from the uploaded dataset in the epoch's order
+        (`resident.epoch_order`, the host path's permutation), so the
+        loop moves no example bytes. steps_per_execution composes: a
+        group is steps_per_execution steps (a graph replay each on the
+        graph route), and a resumed position that is not on a group
+        boundary replays its epoch from the start with a warning, as
+        JAX's resident loop does."""
+        weighted = resident.kind == "xyw"
+        steps = resident.steps_per_epoch
+        if steps_per_epoch is not None:
+            steps = min(steps, int(steps_per_epoch))
+        spe = min(self.steps_per_execution, steps)
+        start = int(start_step)
+        if start and (start % spe or start >= steps):
+            logger.warning(
+                "Resident resume position step_in_epoch=%d does not sit on "
+                "a dispatch boundary (steps_per_execution=%d, "
+                "steps_per_epoch=%d); replaying the epoch from its start "
+                "instead.", start, spe, steps)
+            start = 0
+        graph = (self._ensure_graph(None, weighted, resident)
+                 if self.steps_per_execution > 1 else None)
+        src = resident.source
+        host_base = self.state.step
+        b = resident.batch_size
+        for epoch in range(initial_epoch, epochs):
+            epoch_start = start if epoch == initial_epoch else 0
+            self._data_progress = {
+                "epoch": epoch,
+                "epoch_base": host_base - epoch_start,
+                "dataset_epoch": int(src._epoch),
+                "steps_per_epoch": steps,
+                "data_seed": src.seed,
+            }
+            for cb in callbacks:
+                cb.on_epoch_begin(epoch)
+            order = resident.epoch_order(src._epoch)
+            src._epoch += 1
+            if graph is not None:
+                graph.start_epoch(order, epoch_start)
+            step_logs = []
+            count = 0
+            t0 = time.time()
+            runtime.set_phase("step")
+            position = epoch_start
+            while position < steps and not self._abort_epoch:
+                n = min(spe, steps - position)
+                if self._chaos is not None:
+                    self._chaos.pre_dispatch(host_base + count, n)
+                for _ in range(n):
+                    if graph is not None:
+                        logs = graph.run()
+                    else:
+                        batch = resident.gather(
+                            order[position * b:(position + 1) * b])
+                        logs = self._step(*self._split(batch, weighted))
+                    step_logs.append(logs)
+                    position += 1
+                    count += 1
+                    probe, self._resume_probe = self._resume_probe, None
+                    if probe is not None:
+                        probe.first_step()
+            host_base += count
+            if not (self._abort_epoch and count == 0):
                 self._post_epoch_logs(step_logs, count, t0, epoch,
                                       validation_data, batch_size,
                                       callbacks, history, verbose)

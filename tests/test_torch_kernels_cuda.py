@@ -931,3 +931,202 @@ def test_llama_resume_is_bitwise_on_the_card(tmp_path):
         assert torch.equal(a, b), name
         assert torch.equal(clean.ema_params[name],
                            resumed.ema_params[name]), name
+
+
+# -- the image slice on the card ------------------------------------------
+#
+# Tolerances: a small ResNet step in bf16 against the same step in f32
+# (TF32 off in cuBLAS and cuDNN): the loss within 2e-2 relative and each
+# gradient norm within 5e-2 relative of the f32 one, or 1e-3 of the
+# largest norm (bf16 rounds every activation to 2^-9 over a few layers);
+# the spe CUDA graph against the eager loop and remat against the plain
+# step, cuDNN in its deterministic algorithms: bit for bit; flash at S
+# 197, non-causal, against mha_reference in f32: 2e-2 of each tensor's
+# largest magnitude in bf16.
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _image_data(n, size, classes, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, size, size, 3)).astype(np.float32)
+    y = (np.arange(n) % classes).astype(np.int32)
+    x += np.linspace(-1, 1, classes)[y][:, None, None, None].astype(
+        np.float32)
+    return x, y
+
+
+def _small_resnet(dtype, device, seed=0):
+    from cloud_tpu_torch.models import resnet as tresnet
+
+    return tresnet.ResNet(stage_sizes=(1, 1), num_classes=5, num_filters=16,
+                          compute_dtype=dtype, device=device, seed=seed)
+
+
+def _grads_of_one_step(model, x, y):
+    import torch.nn.functional as F
+
+    model.zero_grad(set_to_none=True)
+    logits = model(torch.tensor(x, device="cuda"), train=True)
+    loss = F.cross_entropy(logits, torch.tensor(y, device="cuda").long())
+    loss.backward()
+    return loss.item(), {n: p.grad.float().norm().item()
+                         for n, p in model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_small_resnet_step_bf16_against_f32():
+    dev = _card()
+    x, y = _image_data(16, 32, 5)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lo_model = _small_resnet(torch.bfloat16, dev)
+        hi_model = _small_resnet(torch.float32, dev)
+        hi_model.load_state_dict(lo_model.state_dict())
+        loss_lo, norms_lo = _grads_of_one_step(lo_model, x, y)
+        loss_hi, norms_hi = _grads_of_one_step(hi_model, x, y)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    assert abs(loss_lo - loss_hi) <= 2e-2 * abs(loss_hi)
+    top = max(norms_hi.values())
+    for name, want in norms_hi.items():
+        assert abs(norms_lo[name] - want) <= 5e-2 * want + 1e-3 * top, name
+    # The running statistics moved by flax's rule, in f32.
+    for mod in (lo_model.bn_init, hi_model.bn_init):
+        assert mod.running_mean.dtype == torch.float32
+        assert not torch.equal(mod.running_var,
+                               torch.ones_like(mod.running_var))
+
+
+def _fit_state(trainer, x, y, **kw):
+    history = trainer.fit(x, y, verbose=False, **kw)
+    torch.cuda.synchronize()
+    return history, {k: v.detach().clone()
+                     for k, v in trainer.model.state_dict().items()}
+
+
+def _trainer_for(kind, spe, dev, remat=False):
+    from cloud_tpu_torch.models import ViT
+    from cloud_tpu_torch.models import mnist as tmnist
+    from cloud_tpu_torch.training import trainer as ttrainer
+
+    if kind == "mlp":
+        model = tmnist.MLP(hidden=64, device=dev, seed=1)
+        opt = lambda p: torch.optim.Adam(p, lr=1e-3, capturable=True)
+        kw = {}
+    elif kind == "resnet":
+        model = _small_resnet(torch.bfloat16, dev, seed=1)
+        opt = ttrainer.make_optimizer("sgd", 0.1)
+        kw = dict(train_kwargs={"train": True}, eval_kwargs={"train": False})
+    else:
+        model = ViT(num_classes=5, patch_size=4, num_layers=2, num_heads=2,
+                    d_model=64, d_ff=128, image_size=28, device=dev, seed=1)
+        opt = ttrainer.make_optimizer(
+            "lamb", ttrainer_schedule(1e-3))
+        kw = dict(train_kwargs={"train": True})
+    return ttrainer.Trainer(model, optimizer=opt, seed=0, remat=remat,
+                            steps_per_execution=spe, **kw)
+
+
+def ttrainer_schedule(peak):
+    from cloud_tpu_torch.training import schedules
+
+    return schedules.warmup_cosine(peak, 12, warmup_steps=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mlp", "resnet", "vit"])
+@pytest.mark.parametrize("cache", [None, "device"])
+def test_spe_graph_bit_equal_to_the_loop(kind, cache):
+    from cloud_tpu_torch.training import trainer as ttrainer
+
+    dev = _card()
+    torch.backends.cudnn.deterministic = True
+    try:
+        if kind == "mlp":
+            x, y = _image_data(96, 28, 5)
+            x = x[..., 0]
+        else:
+            x, y = _image_data(48, 28 if kind == "vit" else 16, 5)
+        loop = _trainer_for(kind, 1, dev)
+        graph = _trainer_for(kind, 4, dev)
+        captures = ttrainer.graph_captures()
+        kw = dict(epochs=2, batch_size=8, cache=cache)
+        h1, s1 = _fit_state(loop, x, y, **kw)
+        h4, s4 = _fit_state(graph, x, y, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert graph._spe_route == "graph"
+    assert ttrainer.graph_captures() == captures + 1
+    assert h1["loss"] == h4["loss"]
+    for key in s1:
+        assert torch.equal(s1[key], s4[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["resnet", "vit"])
+def test_remat_bit_equal_to_plain_on_the_card(kind):
+    dev = _card()
+    x, y = _image_data(32, 28 if kind == "vit" else 16, 5)
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = [_fit_state(_trainer_for(kind, 1, dev, remat=remat), x, y,
+                             epochs=1, batch_size=8)[1]
+                  for remat in (False, True)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for key in states[0]:
+        assert torch.equal(states[0][key], states[1][key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_flash_at_vit_length_non_causal(batch):
+    from cloud_tpu_torch.ops import attention as tatt
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    q, k, v, dout = (torch.tensor(rng.normal(size=(batch, 197, 12, 64)),
+                                  dtype=torch.bfloat16, device=dev)
+                     for _ in range(4))
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    before = dict(tatt.launches)
+    out = tatt.attention(*leaves, causal=False)
+    grads = torch.autograd.grad(out, leaves, dout)
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkdv"):
+        assert tatt.launches[name] == before[name] + 1
+    f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    ref = tatt.mha_reference(*f32, causal=False)
+    ref_grads = torch.autograd.grad(ref, f32, dout.float())
+    for got, want in zip((out,) + grads, (ref,) + ref_grads):
+        err = (got.float() - want).abs().max().item()
+        assert err <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_resident_gather_order_on_the_card():
+    from cloud_tpu_torch.training import data as tdata
+
+    dev = _card()
+    x, y = _image_data(40, 4, 3)
+    ds = tdata.ArrayDataset(x, y, batch_size=8, shuffle=True, seed=9)
+    res = tdata.DeviceResidentDataset(ds, input_cast="uint8", device=dev)
+    for epoch in range(3):
+        order = res.epoch_order(epoch)
+        np.testing.assert_array_equal(
+            order.cpu().numpy(), tdata.epoch_permutation(40, 9, epoch))
+        for step, (xb, yb) in enumerate(ds):
+            gx, gy = res.gather(order[step * 8:(step + 1) * 8])
+            np.testing.assert_array_equal(
+                res.policy.widen(gx).cpu().numpy(),
+                res.policy.widen(res.policy.host_cast(xb)).numpy())
+            np.testing.assert_array_equal(gy.cpu().numpy(), yb)

@@ -192,26 +192,30 @@ def test_schedule_through_make_optimizer_matches_jax():
 
 def test_unported_options_raise():
     """Only the options still to port raise, each naming its ROADMAP
-    item (EMA, trainable and callbacks work since the training-loop
-    slice: tests/test_torch_callbacks.py, test_torch_checkpoint.py)."""
+    item: the parallel axes (item 6). EMA, trainable and callbacks work
+    since the training-loop slice (tests/test_torch_callbacks.py,
+    test_torch_checkpoint.py); steps_per_execution, remat, warm starts,
+    cache="device", input casts and the five optax optimizers since the
+    image slice (tests/test_torch_trainer_options.py,
+    test_torch_data_pipeline.py, test_torch_optimizers.py)."""
     model = torch.nn.Linear(2, 2)
     for kw, item in ((dict(zero1=True), 6), (dict(fsdp=True), 6),
                      (dict(mesh=object()), 6),
-                     (dict(param_sharding_rules=()), 6),
-                     (dict(steps_per_execution=2), 2),
-                     (dict(remat=True), 2)):
+                     (dict(param_sharding_rules=()), 6)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.*item {}".format(item)):
             ttrainer.Trainer(model, **kw)
-    with pytest.raises(NotImplementedError, match="eps inside"):
-        ttrainer.OPTIMIZERS["rmsprop"]([torch.nn.Parameter(torch.zeros(1))])
-    trainer = ttrainer.Trainer(model, loss="mse", metrics=())
+    for name in ("rmsprop", "adagrad", "adafactor", "lamb", "lion"):
+        ttrainer.OPTIMIZERS[name]([torch.nn.Parameter(torch.zeros(1))])
     x = np.zeros((4, 2), np.float32)
-    for kw, item in ((dict(cache="device"), 4), (dict(input_cast="uint8"), 4),
-                     (dict(warm_start=True), 2)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*item {}".format(item)):
-            trainer.fit(x, x, **kw)
+    for ctor, kw in ((dict(steps_per_execution=2), {}),
+                     (dict(remat=True), {}), ({}, dict(cache="device")),
+                     ({}, dict(input_cast="uint8")),
+                     ({}, dict(warm_start=True))):
+        trainer = ttrainer.Trainer(torch.nn.Linear(2, 2), loss="mse",
+                                   metrics=(), **ctor)
+        history = trainer.fit(x, x, batch_size=2, verbose=False, **kw)
+        assert trainer.state.step == 2 and len(history["loss"]) == 1
 
 
 # -- the slice as a whole ----------------------------------------------
