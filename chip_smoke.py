@@ -41,12 +41,13 @@ then:
    ViT-B/16's attention at phase 11's shape (B 256, S 197, H 12, D 64,
    non-causal); then
    times each kernel at the GPT-2, the TinyLlama, the Gemma-2, the
-   Phi-3-mini, the phi-2, the Qwen3-30B-A3B and the DeepSeek-V4-Flash
-   shapes beside its bound,
+   Phi-3-mini, the phi-2, the Qwen3-30B-A3B, the DeepSeek-V4-Flash and
+   the ViT-B/16 (non-causal) shapes beside its bound,
    the plain version and scaled_dot_product_attention (forward; the
    whole backward, beside the port's whole backward: delta, dq and
-   dk/dv), which the port never calls, and the host time of each
-   wrapper's launch;
+   dk/dv, all three by the profiler's device time, or all three by
+   CUDA events where the profiler loses kernels of one), which the port never
+   calls, and the host time of each wrapper's launch;
 4. holds the fused RMSNorm kernels (with and without the residual add)
    against `rmsnorm_residual_reference` at rows 8192 and 8191 x D 2048,
    bf16 and f32 (h bit for bit, normed element by element), and times
@@ -142,8 +143,9 @@ then:
    224 x 224) at bench.py's operating point (batch 256, bf16, SGD 0.1
    momentum 0.9, resident data, bf16 input cast, steps_per_execution 5,
    warm start) on class-template images over 10 of the 1000 classes:
-   the first step's latency with and without a warm start (no counter
-   moving on step 1 after it), the held-out accuracy gate,
+   the first step's latency with a warm start (its warm-up, then step
+   1, which moves no counter) and then without one, the fit that
+   follows taking its new upload into the captured graph, the held-out accuracy gate,
    `evaluate`/`predict` with train=False, step p50, images/s, MFU from
    the convolutions' and the head's shapes, busy share and kernels a
    step under torch.profiler, peak memory, one step in bf16 against f32,
@@ -152,8 +154,7 @@ then:
    moved once and both peaks; (c) ViT-B/16 at full width (AdamW, bf16,
    batch 256): one step against attention by `mha_reference`, each
    flash kernel launched once per layer every step, the held-out gate,
-   step p50, images/s, MFU and busy share; then times the flash kernels
-   at ViT's shape (S 197, non-causal) beside bound and SDPA;
+   step p50, images/s, MFU and busy share;
 12. prints the kernel table as one JSON line (one row per kernel and
    path that launches it, with that path's launches and the times at
    its shape), the card line, and the contract line
@@ -172,8 +173,8 @@ gate to OUT (JSON).
 
     python3 chip_smoke.py --phase11
 
-builds the kernels and runs the ViT shape's flash check and phase 11
-alone (no kernel table, no contract line), writing
+builds the kernels and runs the ViT shape's flash check and timing,
+and phase 11 alone (no kernel table, no contract line), writing
 build/chip_smoke_phase11.json.
 
     python3 chip_smoke.py --flash-times TREE OUT
@@ -950,7 +951,9 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64), causal=True):
     and the host time of each wrapper's launch (`host_us`).
     Row "backward" holds the whole backward of the port (`_delta`, dq,
     dk/dv through `flash_attention`'s autograd), SDPA and the plain
-    version, all by `backward_ms`, and `_delta` alone."""
+    version, all by `backward_ms` (or all by `event_ms` when the
+    profiler loses kernels of one of them: its `method`), and `_delta`
+    alone."""
     import torch
     import torch.nn.functional as F
     from cloud_tpu_torch.ops import attention as tatt
@@ -999,32 +1002,45 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64), causal=True):
 
     plain_f = timed_ms(plain_fwd)
     backends = sdpa_backends(sdpa_fwd)
-    plain_b, plain_kernels = backward_ms(
-        tatt.mha_reference(*leaves, causal=causal), leaves, dout)
     lib_f = timed_ms(sdpa_fwd)
-    lib_b, lib_kernels = backward_ms(
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, **gqa),
-        leaves, dout.transpose(1, 2))
-    if not lib_kernels:
-        # The profiler saw none of SDPA's backward kernels (it happened at
-        # ViT's shape late in the run): CUDA events around queued calls
-        # instead, the host's launches hidden behind the device's work.
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                 is_causal=causal, **gqa)
-        lib_b = event_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, dout.transpose(1, 2), retain_graph=True),
-            iters=10)
-        lib_kernels = float("nan")
-    # The port's whole backward timed as SDPA's is: delta = rowsum(dO O)
-    # (plain PyTorch, as the JAX backward computes it), dq and dk/dv,
-    # through `flash_attention`'s autograd.
-    port_b, port_kernels = backward_ms(
-        tatt.flash_attention(*leaves, causal=causal), leaves, dout)
+    # The three backwards, each from its own forward's graph: the plain
+    # version's, SDPA's and the port's (delta = rowsum(dO O), plain
+    # PyTorch as the JAX backward computes it, then dq and dk/dv,
+    # through `flash_attention`'s autograd).
+    forwards = {
+        "plain": lambda: (tatt.mha_reference(*leaves, causal=causal), dout),
+        "sdpa": lambda: (F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, **gqa), dout.transpose(1, 2)),
+        "port": lambda: (tatt.flash_attention(*leaves, causal=causal),
+                         dout)}
+
+    def by_profiler(o, g):
+        return backward_ms(o, leaves, g)
+
+    def by_events(o, g):
+        return event_ms(lambda: torch.autograd.grad(o, leaves, g,
+                                                    retain_graph=True),
+                        iters=10), float("nan")
+
+    timed = {name: by_profiler(*make()) for name, make in forwards.items()}
+    method = "profiler"
+    if not all(kernels and float(kernels).is_integer()
+               for _, kernels in timed.values()):
+        # A backward launches the same kernels on every call: none, or a
+        # mean count that is not whole, means the profiler lost records
+        # (it did at ViT's shape, for SDPA's and the plain backward): all
+        # three by CUDA events around queued calls instead, one yardstick
+        # for each, the host's launches hidden behind the device's work.
+        method = "cuda events"
+        timed = {name: by_events(*make()) for name, make in forwards.items()}
+    plain_b, plain_kernels = timed["plain"]
+    lib_b, lib_kernels = timed["sdpa"]
+    port_b, port_kernels = timed["port"]
     rows["sdpa"] = backends
     rows["backward"] = {"port_ms": port_b, "port_kernels": port_kernels,
                         "delta_ms": timed_ms(lambda: tatt._delta(dout, out)),
                         "sdpa_ms": lib_b, "sdpa_kernels": lib_kernels,
-                        "plain_ms": plain_b}
+                        "plain_ms": plain_b, "method": method}
     cost = tatt.flash_attention_cost(batch, seq, heads, kv_heads, head_dim,
                                      causal=causal)
     for name, part, plain, lib in (
@@ -1053,10 +1069,11 @@ def time_flash_kernels(device, shape=(8, 1024, 12, 12, 64), causal=True):
     log("plain backward (dq+dk+dv) {:.4f} ms ({:g} kernels per call); sdpa "
         "backward {:.4f} ms ({:g} kernels per call); the port's backward "
         "(delta + dq + dk/dv) {:.4f} ms ({:g} kernels per call; delta alone "
-        "{:.4f} ms by graph replays), {:.2f}x sdpa's; device time of the "
-        "backward alone under the profiler".format(
+        "{:.4f} ms by graph replays), {:.2f}x sdpa's; each backward alone, "
+        "timed by {}".format(
             plain_b, plain_kernels, lib_b, lib_kernels, port_b, port_kernels,
-            rows["backward"]["delta_ms"], port_b / lib_b))
+            rows["backward"]["delta_ms"], port_b / lib_b,
+            "the profiler" if method == "profiler" else "CUDA events"))
     del q, k, v, dout, out, lse, delta, leaves, out_c, lse_c
     torch.cuda.empty_cache()
     return rows
@@ -3078,9 +3095,9 @@ def step_counters():
 def step_clock():
     """A callback timing each epoch's steps: on_epoch_begin marks the
     host clock (after the fit's upload and warm start), on_epoch_end
-    synchronizes the card and records the seconds, the clock at the end
-    (`end`) and `step_counters` before and after. Returns (callback,
-    rows)."""
+    synchronizes the card and records the seconds, the clock at the
+    start and the end (`begin`, `end`) and `step_counters` before and
+    after. Returns (callback, rows)."""
     import torch
     from cloud_tpu_torch.training.callbacks import Callback
 
@@ -3094,7 +3111,8 @@ def step_clock():
         def on_epoch_end(self, epoch, logs=None):
             torch.cuda.synchronize()
             end = time.monotonic()
-            rows.append({"seconds": end - self.t0, "end": end,
+            rows.append({"seconds": end - self.t0, "begin": self.t0,
+                         "end": end,
                          "counters_before": self.before,
                          "counters_after": step_counters()})
 
@@ -3318,50 +3336,57 @@ def resnet_phase(device, smi, x, y):
                        steps_per_execution=spe, remat=remat)
 
     out = {}
-    # The first step's latency, from the fit's call to its first step's
-    # end: without a warm start it holds the one-off costs (the upload,
-    # cuDNN's algorithm search, the warm step and the capture); then on
-    # another Trainer of the same geometry after `warmup()` paid them.
-    cold_cb, cold_rows = step_clock()
+    # The first step's latency. With fit(warm_start=True), on a Trainer of
+    # its own: the warm-up, from fit()'s call to its epoch's start (the
+    # upload, cuDNN's algorithm search at these shapes, the warm step, the
+    # capture), then step 1 alone, which must move no counter. It runs
+    # first in the process, so that its warm-up pays cuDNN's search as a
+    # fresh job's does. Then without a warm start, on the Trainer that
+    # goes on to the fit: from fit()'s call to step 1's end. cuDNN's
+    # search is not in it (its cache is the process's, filled by the warm
+    # case): a lower bound of a fresh job's cold first step.
     warm_cb, warm_rows = step_clock()
-    cold = trainer_of(ResNet50(num_classes=1000, device=device, seed=0))
-    before_cold = step_counters()
-    t_cold = time.monotonic()
-    cold.fit(x_tr, y_tr, epochs=1, steps_per_epoch=1, callbacks=[cold_cb],
-             **fit_kw)
-    cold_s = cold_rows[0]["end"] - t_cold
-    cold_captures = cold_rows[0]["counters_after"]["captures"] \
-        - before_cold["captures"]
-    del cold
-    torch.cuda.empty_cache()
-    model = ResNet50(num_classes=1000, device=device, seed=0)
-    trainer = trainer_of(model)
+    cold_cb, cold_rows = step_clock()
+    warm = trainer_of(ResNet50(num_classes=1000, device=device, seed=0))
     t_warm = time.monotonic()
-    trainer.warmup(x_tr, y_tr, batch_size=RESNET_BATCH,
-                   input_cast="bfloat16", cache="device")
-    torch.cuda.synchronize()
-    warmup_s = time.monotonic() - t_warm
-    t_first = time.monotonic()
-    trainer.fit(x_tr, y_tr, epochs=1, steps_per_epoch=1, warm_start=True,
-                callbacks=[warm_cb], **fit_kw)
+    warm.fit(x_tr, y_tr, epochs=1, steps_per_epoch=1, warm_start=True,
+             callbacks=[warm_cb], **fit_kw)
     first = warm_rows[0]
-    warm_s = first["end"] - t_first
+    warm_up_s = first["begin"] - t_warm
     moved = {k: (first["counters_before"][k], first["counters_after"][k])
              for k in first["counters_before"]
              if first["counters_before"][k] != first["counters_after"][k]}
-    log("11b ResNet-50 first step, from fit() to its end: {:.3f} s without "
-        "a warm start ({} capture(s) in it), {:.3f} s after {:.2f} s of "
-        "warmup() (the step alone {:.3f} s; counters moved on step 1: {}) "
-        "[{}]".format(cold_s, cold_captures, warm_s, warmup_s,
-                      first["seconds"], moved or "none", smi))
+    del warm
+    torch.cuda.empty_cache()
+    model = ResNet50(num_classes=1000, device=device, seed=0)
+    trainer = trainer_of(model)
+    before_cold = step_counters()
+    t_cold = time.monotonic()
+    trainer.fit(x_tr, y_tr, epochs=1, steps_per_epoch=1,
+                callbacks=[cold_cb], **fit_kw)
+    cold_s = cold_rows[0]["end"] - t_cold
+    cold_captures = cold_rows[0]["counters_after"]["captures"] \
+        - before_cold["captures"]
+    log("11b ResNet-50 first step: fit(warm_start=True) warms up for "
+        "{:.3f} s (the upload, cuDNN's search, the warm step, the capture), "
+        "then step 1 takes {:.3f} s (counters moved on step 1: {}); without "
+        "a warm start, from fit() to step 1's end {:.3f} s ({} capture(s) in "
+        "it; cuDNN's search already paid by the warm case, so a lower bound "
+        "of a fresh job's) [{}]".format(
+            warm_up_s, first["seconds"], moved or "none", cold_s,
+            cold_captures, smi))
     if moved:
         raise AssertionError("warm start: step 1 moved {}".format(moved))
-    out["first_step_s"] = {"cold": cold_s, "warm": warm_s,
-                           "warm_step_alone": first["seconds"],
-                           "warmup_s": warmup_s}
+    out["first_step_s"] = {"warm_up": warm_up_s,
+                           "warm_step_1": first["seconds"],
+                           "cold_without_cudnn_search": cold_s}
 
+    # The fit uploads anew (as every fit does) and its warm start hands
+    # the upload to the graph the cold fit captured: no capture, and no
+    # h2d byte beyond the upload.
     runtime.reset_transfer_stats()
     torch.cuda.reset_peak_memory_stats()
+    captures = step_counters()["captures"]
     t_fit = time.monotonic()
     history = trainer.fit(x_tr, y_tr, epochs=RESNET_EPOCHS, warm_start=True,
                           **fit_kw)
@@ -3371,19 +3396,24 @@ def resnet_phase(device, smi, x, y):
     # step's memory is the graph's pool.
     peak_fit = torch.cuda.max_memory_reserved()
     stats = runtime.transfer_stats()
-    if stats["h2d_bytes"] != 0:
-        raise AssertionError("resident ResNet fit moved {} h2d bytes"
-                             .format(stats["h2d_bytes"]))
+    upload = IMAGE_TRAIN * (IMAGE_SIZE * IMAGE_SIZE * 3 * 2 + 8)
+    if stats["h2d_bytes"] != upload or stats["h2d_transfers"] != 2:
+        raise AssertionError("resident ResNet fit moved {} h2d bytes in {} "
+                             "transfers; the upload is {}".format(
+                                 stats["h2d_bytes"], stats["h2d_transfers"],
+                                 upload))
     if trainer._spe_route != "graph":
         raise AssertionError("ResNet fit did not take the graph route")
-    resident = trainer._resident[2]
-    log("11b ResNet-50 fit: {} epochs x {} steps (spe {}, graph), loss {} "
-        "accuracy {}; {:.1f} s; h2d 0 bytes; peak reserved memory {:.2f} "
-        "GB [{}]"
+    if step_counters()["captures"] != captures:
+        raise AssertionError("the ResNet fit captured its step again")
+    resident = graph_of(trainer).resident
+    log("11b ResNet-50 fit: {} epochs x {} steps (spe {}, graph, taken "
+        "over by the new upload), loss {} accuracy {}; {:.1f} s; h2d {} "
+        "bytes, the upload alone; peak reserved memory {:.2f} GB [{}]"
         .format(RESNET_EPOCHS, IMAGE_TRAIN // RESNET_BATCH, RESNET_SPE,
                 [round(v, 4) for v in history["loss"]],
                 [round(v, 4) for v in history["accuracy"]], fit_s,
-                peak_fit / 1e9, smi))
+                stats["h2d_bytes"], peak_fit / 1e9, smi))
     val = trainer.evaluate(x_te, y_te, batch_size=RESNET_BATCH,
                            verbose=False)
     pred = trainer.predict(x_te, batch_size=RESNET_BATCH)
@@ -3490,9 +3520,13 @@ def resnet_phase(device, smi, x, y):
     del lo, hi, seen, xf
 
     # remat: the same step's gradients with and without recompute, cuDNN
-    # in its deterministic algorithms; the running statistics moved once
-    # (equal to the plain step's); peak memory of each.
+    # deterministic (its deterministic algorithms, chosen by heuristics:
+    # benchmark's choice by timing can take another algorithm for the
+    # recompute than for the forward, and then the last bits differ);
+    # the running statistics moved once (equal to the plain step's);
+    # peak memory of each.
     torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     remat_rows, grads, buffers = {}, {}, {}
     try:
         for remat in (False, True):
@@ -3608,8 +3642,10 @@ def vit_phase(device, smi, x, y):
     if not val["accuracy"] >= IMAGE_ACC_GATE:
         raise AssertionError("ViT-B/16 held-out accuracy {} below {}"
                              .format(val["accuracy"], IMAGE_ACC_GATE))
-    resident = trainer._resident[2]
-    bx, by = resident.gather(torch.arange(VIT_BATCH, device=device))
+    # One batch as the fit's resident copy holds it: bf16 features
+    # (round to nearest even, as the input cast narrows), int64 labels.
+    bx = torch.tensor(x_tr[:VIT_BATCH], device=device).to(torch.bfloat16)
+    by = torch.tensor(y_tr[:VIT_BATCH], device=device).long()
     times = []
     for _ in range(10):
         t1 = time.monotonic()
@@ -3633,15 +3669,15 @@ def vit_phase(device, smi, x, y):
                 "step_s": times, "images_per_s": VIT_BATCH / p50,
                 "mfu": flops / p50 / PEAK_FLOPS["bf16"],
                 "train_flops_per_step": flops, "profile": prof})
-    del trainer, model, resident, bx, by
+    del trainer, model, bx, by
     torch.cuda.empty_cache()
     return launches, out
 
 
 def image_phase(device, smi):
     """Phase 11: MNIST, ResNet-50 and ViT-B/16 through Trainer.fit.
-    Returns (ViT's flash launches, the ViT shape's flash timing rows,
-    details)."""
+    Returns (ViT's flash launches, details). The ViT shape's flash
+    timing runs with the other shapes' (`time_flash_kernels`)."""
     import torch
 
     t_phase = time.monotonic()
@@ -3654,12 +3690,10 @@ def image_phase(device, smi):
     vit_launches, details["vit_b16"] = vit_phase(device, smi, x, y)
     del x, y
     torch.cuda.empty_cache()
-    vit_rows = time_flash_kernels(device, VIT_ATTENTION, causal=False)
-    details["flash_timing_vit_b16"] = vit_rows
     details["phase11_s"] = time.monotonic() - t_phase
     log("phase 11 took {:.1f} s (image data {:.1f} s) [{}]".format(
         details["phase11_s"], details["image_data_s"], smi))
-    return vit_launches, vit_rows, details
+    return vit_launches, details
 
 
 def llama_gate_seeds(seeds, out_path):
@@ -3802,12 +3836,14 @@ def main():
         # python3 chip_smoke.py --phase11: the build, the ViT flash check
         # and phase 11 alone (no contract line).
         _, vit_check = check_flash_kernels(device, names=("vit_b16_bf16",))
-        vit_launches, vit_rows, images = image_phase(device, smi)
+        vit_rows = time_flash_kernels(device, VIT_ATTENTION, causal=False)
+        vit_launches, images = image_phase(device, smi)
         os.makedirs(os.path.join(root, "build"), exist_ok=True)
         with open(os.path.join(root, "build", "chip_smoke_phase11.json"),
                   "w") as f:
             json.dump({"nvidia_smi": smi, "flash_check": vit_check,
                        "vit_launches": vit_launches, "images": images,
+                       "flash_timing_vit_b16": vit_rows,
                        "run_s": time.monotonic() - t_start}, f, indent=1,
                       default=str)
         log("phase 11 alone: whole run {:.1f} s".format(
@@ -3824,6 +3860,7 @@ def main():
     flash_rows_phi2 = time_flash_kernels(device, PHI2_ATTENTION)
     flash_rows_qwen3 = time_flash_kernels(device, QWEN3_ATTENTION)
     flash_rows_deepseek = time_flash_kernels(device, DEEPSEEK_V4_ATTENTION)
+    flash_rows_vit = time_flash_kernels(device, VIT_ATTENTION, causal=False)
     norm_rows, norm_details = check_norm_kernels(device)
     mlp_rows, mlp_details = check_mlp_kernels(device)
 
@@ -3854,7 +3891,7 @@ def main():
     loop = training_loop(device, root)
     loop["phase10_s"] = time.monotonic() - t_phase10
     log("phase 10 took {:.1f} s".format(loop["phase10_s"]))
-    vit_launches, flash_rows_vit, images = image_phase(device, smi)
+    vit_launches, images = image_phase(device, smi)
 
     # One row per kernel and path that launches it: the launches counted
     # from 0 around that path's run, the times and errors at its shape.
@@ -3932,6 +3969,7 @@ def main():
                    "flash_timing_phi2": flash_rows_phi2,
                    "flash_timing_qwen3moe": flash_rows_qwen3,
                    "flash_timing_deepseek_v4_d512": flash_rows_deepseek,
+                   "flash_timing_vit_b16": flash_rows_vit,
                    "norm_checks": norm_details, "mlp_checks": mlp_details,
                    "training": training, "llama_training": llama_training,
                    "llama_generate": generation,

@@ -25,12 +25,12 @@ device with no example bytes crossing after the upload.
 dispatch (a `lax.scan` of N steps) is, on the card, a CUDA graph of the
 train step captured once and replayed N times per group, reading static
 input buffers that the feed (or the resident gather, inside the graph)
-fills and the schedule's learning rate from a device tensor. A step
-that cannot be replayed that way (an MoE layer reads its expert group
-sizes on the host, dropout seeds a generator per step on the host,
-gradient accumulation alternates two step bodies, SGD reads a tensor
-learning rate on the host) runs its groups as a loop, and the log says
-so; a step that fails to capture raises with the reason. On the CPU a
+fills and the schedule's learning rate from a device tensor. An MoE
+step reads its expert group sizes on the host, so its groups run as a
+loop, with a warning that says so. Any other step that a graph cannot
+replay raises instead: gradient accumulation and torch.optim.SGD under a
+schedule at `build`, a forward that draws dropout from its generator,
+or any other failure, at the capture (before step 1). On the CPU a
 group is a loop. `fit(warm_start=True)` / `warmup()` pay the one-off
 costs (the kernels' nvcc builds, cuDNN's algorithm choice, the graph's
 capture) before step 1 by a warm step whose effects on the state are
@@ -328,6 +328,15 @@ class _CapturedStep:
         self.graph = graph
         _captures[0] += 1
 
+    @torch.no_grad()
+    def rebind(self, resident):
+        """Takes a new upload of the captured geometry: its tensors are
+        copied into the storage the graph reads, which the new dataset
+        then reads too (its own copy is released)."""
+        _copy_into(self.resident.data, resident.data)
+        resident.data = self.resident.data
+        self.resident = resident
+
     def start_epoch(self, order, start_step):
         """The resident epoch's device order and first position."""
         self.perm.copy_(order)
@@ -555,6 +564,9 @@ class Trainer:
                 (Keras `steps_per_execution`): on the card a CUDA graph of
                 the step replayed N times a group (module doc), on the
                 CPU a loop; the history is the per-step mean, as JAX's.
+                On the card, a step that cannot be captured raises (at
+                `build`, or at the capture for a forward that draws
+                dropout); an MoE step runs its groups as a loop.
         """
         unported = {"mesh": mesh is not None,
                     "param_sharding_rules": param_sharding_rules is not None,
@@ -608,14 +620,14 @@ class Trainer:
         self._metric_reader = None
         self._pending_history = []
         self._takes_generator = _accepts(model.forward, "generator")
-        self._widen = None
+        # The fit's input cast (None without one).
+        self._policy = None
         # Captured step graphs by geometry, the schedule's device rate,
         # and the geometries already warmed.
         self._graphs = {}
         self._lr_tensor = None
         self._warmed = set()
         self._spe_route = None
-        self._resident = None
 
     @property
     def device(self):
@@ -729,15 +741,18 @@ class Trainer:
             torch._foreach_add_(shadow, [params[n].detach() for n in names],
                                 alpha=1.0 - self.ema_decay)
 
-    def _forward(self, x, step, captured):
+    def _forward(self, x, step, captured, generator=None):
         """The training forward at train step `step`. The dropout
         generator is seeded from the step (none inside a captured graph:
-        the graph route is taken only without dropout). Under remat the
-        forward runs inside `torch.utils.checkpoint` (non-reentrant): the
-        recompute makes the same generator afresh (checkpoint restores
+        `_capture` refuses a forward that draws from it), or is
+        `generator` when one is given (the capture's probe). Under remat
+        the forward runs inside `torch.utils.checkpoint` (non-reentrant):
+        the recompute makes the same generator afresh (checkpoint restores
         only the global RNGs) and raises the recompute flag, so BatchNorm
         leaves its running averages as the first forward moved them."""
         kwargs = dict(self.train_kwargs)
+        if generator is not None:
+            kwargs["generator"] = generator
         draw = self._takes_generator and not captured
         if not self.remat:
             if draw:
@@ -778,17 +793,18 @@ class Trainer:
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
 
-    def _step(self, x, y, w, count=True, captured=False):
+    def _step(self, x, y, w, count=True, captured=False, generator=None):
         """One train step on device tensors (x possibly narrowed by the
         input cast): forward, loss, backward, the update (every k-th
         step), EMA; returns the step's logs (device scalars). count:
         advance the host step and update counters (a captured or warming
-        step leaves them to its caller)."""
-        if self._widen is not None:
-            x = self._widen(x)
+        step leaves them to its caller). generator: the forward's, in
+        place of the step's own (`_forward`)."""
+        if self._policy is not None:
+            x = self._policy.widen(x)
         self.model.train()
         step = self.state.step
-        outputs = self._forward(x, step, captured)
+        outputs = self._forward(x, step, captured, generator)
         per_example = self.loss_fn(outputs, y)
         if w is not None:
             # Weighted Keras semantics: mean(per_example * w), not
@@ -848,32 +864,37 @@ class Trainer:
     def _choose_spe_route(self):
         """How a group of `steps_per_execution` steps runs: "graph" (a
         captured CUDA graph of the step, replayed per step) or "loop"
-        (eager steps), with the reason logged once when a card is there
-        but the step cannot be replayed from a graph."""
+        (eager steps: on the CPU, and for an MoE step on the card, with
+        one warning). A step that no graph can replay raises here with
+        the reason; whether the forward draws dropout is known only by
+        running it, and `_capture` refuses that."""
         self._spe_route = "loop"
         if self.steps_per_execution == 1 or self.device.type != "cuda":
             return
         from cloud_tpu_torch.models.moe import MoEMLP, TopKMoEMLP
 
+        if any(isinstance(m, (MoEMLP, TopKMoEMLP))
+               for m in self.model.modules()):
+            logger.warning(
+                "steps_per_execution=%d: an MoE layer reads its expert "
+                "group sizes on the host every step, so each group runs as "
+                "a loop of eager steps (one host read per step), not as "
+                "replays of a captured graph.", self.steps_per_execution)
+            return
         reason = None
         if self.gradient_accumulation_steps > 1:
-            reason = "gradient accumulation alternates two step bodies"
-        elif any(isinstance(m, (MoEMLP, TopKMoEMLP))
-                 for m in self.model.modules()):
-            reason = ("an MoE layer reads its expert group sizes on the "
-                      "host every step")
-        elif self._takes_generator and getattr(self.model, "dropout_rate",
-                                               0.0) > 0:
-            reason = "dropout seeds its generator per step on the host"
+            reason = ("gradient accumulation alternates two step bodies, "
+                      "and the graph holds one")
         elif (getattr(self.optimizer, "lr_schedule", None) is not None
               and isinstance(self.optimizer, torch.optim.SGD)):
             reason = ("torch.optim.SGD reads a tensor learning rate on the "
-                      "host")
+                      "host, so its schedule cannot live in the graph")
         if reason is not None:
-            logger.info("steps_per_execution=%d: each group runs as a loop "
-                        "of eager steps (%s).", self.steps_per_execution,
-                        reason)
-            return
+            raise ValueError(
+                "steps_per_execution={} on the card replays a captured CUDA "
+                "graph of the train step, and this step cannot be captured: "
+                "{}. Use steps_per_execution=1.".format(
+                    self.steps_per_execution, reason))
         self._spe_route = "graph"
         for group in self.optimizer.param_groups:
             if "capturable" in group:
@@ -883,16 +904,20 @@ class Trainer:
             for group in self.optimizer.param_groups:
                 group["lr"] = self._lr_tensor
 
-    @staticmethod
-    def _geometry(batch, weighted, resident=None):
-        """The key a captured graph is kept under: the fed batch's leaf
-        shapes and dtypes (or the resident dataset), and weighting."""
-        if resident is not None:
-            return ("resident", id(resident), weighted)
+    def _geometry(self, batch, weighted, resident=None):
+        """The key a captured graph is kept under: the leaf shapes and
+        dtypes of the fed batch (or of the resident dataset, with its
+        batch size and kind), weighting, and the input cast (its lo and
+        scale are constants inside the graph)."""
         leaves = []
         _tree_map(lambda t: leaves.append(
-            None if t is None else (tuple(t.shape), t.dtype)), batch)
-        return ("fed", tuple(leaves), weighted)
+            None if t is None else (tuple(t.shape), t.dtype)),
+            batch if resident is None else resident.data)
+        cast = None if self._policy is None else self._policy.cache_key
+        if resident is not None:
+            return ("resident", tuple(leaves), resident.batch_size,
+                    resident.kind, cast)
+        return ("fed", tuple(leaves), weighted, cast)
 
     def _snapshot(self):
         """The state a warm step may touch: parameters, buffers (the
@@ -953,9 +978,21 @@ class Trainer:
         the graph, `example` is a fed batch of the geometry for the warm
         step."""
         graph = _CapturedStep(self, source, example)
+        # The warm step's forward gets a generator: if it draws from it,
+        # the forward has dropout, which a replay cannot re-seed per step.
+        probe = (torch.Generator(device=self.device).manual_seed(0)
+                 if self._takes_generator else None)
+        seeded = None if probe is None else probe.get_state()
+        self._warm_step(lambda: self._step(*graph.inputs(), count=False,
+                                           captured=True, generator=probe))
+        if probe is not None and not torch.equal(probe.get_state(), seeded):
+            raise ValueError(
+                "steps_per_execution={}: the forward of {} draws dropout "
+                "from its generator, which a captured CUDA graph cannot "
+                "re-seed for each step; use steps_per_execution=1 or a "
+                "dropout rate of 0.".format(self.steps_per_execution,
+                                            type(self.model).__name__))
         try:
-            self._warm_step(lambda: self._step(*graph.inputs(), count=False,
-                                               captured=True))
             graph.capture()
         except Exception as e:
             raise RuntimeError(
@@ -978,6 +1015,8 @@ class Trainer:
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._capture(key, resident, batch)
+        elif resident is not None and graph.resident is not resident:
+            graph.rebind(resident)
         return graph
 
     # -- fit ------------------------------------------------------------
@@ -1026,8 +1065,8 @@ class Trainer:
             boundary. The values are the same either way.
         prefetch: device read-ahead depth of the host feed
             (`data.prefetch_to_device`); 0 feeds synchronously.
-        cache: "device" uploads the dataset to the device once
-            (`data.DeviceResidentDataset`) and gathers every batch
+        cache: "device" uploads the dataset to the device once per
+            fit (`data.DeviceResidentDataset`) and gathers every batch
             there in the host path's order: no example bytes cross
             after the upload (`runtime.transfer_stats()`). Array inputs
             within the memory budget only; anything else streams from
@@ -1150,13 +1189,18 @@ class Trainer:
                     data_seed)
 
         policy = self._input_policy(input_cast, dataset, sample_x)
-        self._widen = None if policy is None else policy.widen
+        self._policy = policy
         resident = None
         if cache not in (None, "none", False):
             if cache != "device":
                 raise ValueError(
                     "Unknown cache={!r}; expected 'device'.".format(cache))
-            resident = self._resident_for(dataset, policy)
+            # Uploaded on every fit, as JAX does: arrays changed in place
+            # since the last fit are trained on as they are now. A graph
+            # captured for the same geometry takes the new upload
+            # (`_ensure_graph`).
+            resident = data_lib.DeviceResidentDataset.build(
+                dataset, input_cast=policy, device=self.device)
         if warm_start:
             self._warm(resident=resident, sample=sample, policy=policy,
                        weighted=weighted)
@@ -1240,30 +1284,6 @@ class Trainer:
             "and needs array inputs; streaming datasets support "
             "input_cast='bfloat16'.")
 
-    def _resident_for(self, dataset, policy):
-        """The dataset's resident copy: the last fit's when this fit is
-        over the same arrays (the same objects), batch geometry, order
-        and cast (no second upload, and its captured step is reused),
-        else a new upload (`DeviceResidentDataset.build`, which may fall
-        back to None)."""
-        arrays = data_lib._leaves(dataset.x) + [dataset.y,
-                                                 dataset.sample_weight]
-        key = (dataset.num_examples, dataset.batch_size, dataset.shuffle,
-               dataset.seed, dataset.drop_remainder,
-               None if policy is None else policy.cache_key)
-        cached = self._resident
-        if cached is not None and cached[0] == key and len(cached[1]) == \
-                len(arrays) and all(a is b for a, b in zip(cached[1],
-                                                           arrays)):
-            resident = cached[2]
-            resident.source = dataset
-            return resident
-        resident = data_lib.DeviceResidentDataset.build(
-            dataset, input_cast=policy, device=self.device)
-        self._resident = (None if resident is None
-                          else (key, arrays, resident))
-        return resident
-
     @staticmethod
     def _host_cast(batch, policy):
         """A host batch with the input cast's narrowing on its features."""
@@ -1277,18 +1297,18 @@ class Trainer:
               weighted=False):
         """The one-off costs of the fit's step, paid before step 1 (once
         per geometry): the graph's capture on the graph route (after its
-        own warm step), else a warm eager step whose effects are undone."""
-        if resident is not None:
-            key = self._geometry(None, resident.kind == "xyw", resident)
-            fed = None
-        else:
-            fed = self._to_device(self._host_cast(sample, policy))
-            key = self._geometry(fed, weighted)
-        if key in self._warmed:
-            return
+        own warm step; a new upload of a captured geometry is copied into
+        the graph's storage), else a warm eager step whose effects are
+        undone."""
+        fed = (None if resident is not None
+               else self._to_device(self._host_cast(sample, policy)))
         if self._spe_route == "graph":
             self._ensure_graph(fed, weighted, resident)
-        elif resident is not None:
+            return
+        key = self._geometry(fed, weighted, resident)
+        if key in self._warmed:
+            return
+        if resident is not None:
             idx = torch.arange(resident.batch_size, device=self.device)
             batch = resident.gather(idx)
             self._warm_step(lambda: self._step(
@@ -1299,20 +1319,18 @@ class Trainer:
         self._warmed.add(key)
 
     def warmup(self, x, y=None, batch_size=32, sample_weight=None,
-               input_cast=None, cache=None, include_eval=False,
-               include_predict=False):
+               input_cast=None, include_eval=False, include_predict=False):
         """Pays a fit's one-off costs for a data geometry ahead of (and
         without) training: the standalone form of
         `fit(warm_start=True)`. Builds the model from a sample batch, runs
         a warm step whose effects on the state are undone (the nvcc
         builds of the path's kernels, cuDNN's algorithm choice, lazy
         optimizer state) and, with steps_per_execution > 1 on the card,
-        captures the step's CUDA graph. A later fit over the same
-        geometry (batch size, weighting, input_cast, cache) starts with
-        none of them; with cache="device", the same arrays and fit's
-        default shuffle, the fit also reuses the warmed upload.
-        include_eval / include_predict also run one evaluation /
-        prediction forward.
+        captures the host-fed step's CUDA graph. A later host-fed fit over
+        the same geometry (batch size, weighting, input_cast) starts with
+        none of them; a fit with cache="device" pays its upload and
+        capture in `fit(warm_start=True)`. include_eval / include_predict
+        also run one evaluation / prediction forward.
 
         Returns {"builds": nvcc builds so far, "captures": graphs
         captured so far}."""
@@ -1322,11 +1340,8 @@ class Trainer:
         if sample_weight is not None:
             ds_kwargs["sample_weight"] = np.asarray(sample_weight,
                                                     np.float32)
-        # Shuffled as fit's default, so that a resident fit reuses the
-        # warmed upload (its key holds the order).
         dataset = data_lib.as_dataset(x, y, batch_size=batch_size,
-                                      shuffle=True, seed=self.seed,
-                                      **ds_kwargs)
+                                      shuffle=False, **ds_kwargs)
         weighted = (isinstance(dataset, data_lib.ArrayDataset)
                     and dataset.sample_weight is not None)
         sample = next(iter(dataset))
@@ -1336,12 +1351,8 @@ class Trainer:
         sample_x = sample[0]
         self.build(sample_x)
         policy = self._input_policy(input_cast, dataset, sample_x)
-        self._widen = None if policy is None else policy.widen
-        resident = None
-        if cache not in (None, "none", False):
-            resident = self._resident_for(dataset, policy)
-        self._warm(resident=resident, sample=sample, policy=policy,
-                   weighted=weighted)
+        self._policy = policy
+        self._warm(sample=sample, policy=policy, weighted=weighted)
         if include_eval:
             self.evaluate(sample[0], sample[1], batch_size=batch_size,
                           verbose=False)

@@ -176,6 +176,25 @@ def test_resident_fit_equals_host_fit(weighted, cast):
     _assert_same(_params(a), _params(b))
 
 
+@pytest.mark.parametrize("cast", [None, "bfloat16", "uint8"])
+def test_resident_fit_trains_on_arrays_changed_in_place(cast):
+    # Each fit uploads anew, as JAX's: a buffer refilled in place between
+    # two fits is trained on as it is at the second fit, the same as
+    # fresh arrays with those values.
+    x, y = _xy(64)
+    kw = dict(epochs=1, batch_size=16, cache="device", input_cast=cast,
+              verbose=False)
+    refilled, fresh = _trainer(), _trainer()
+    h1 = refilled.fit(x, y, **kw)
+    g1 = fresh.fit(x.copy(), y.copy(), **kw)
+    x *= -2.0
+    y[:] = y[::-1].copy()
+    h2 = refilled.fit(x, y, **kw)
+    g2 = fresh.fit(x.copy(), y.copy(), **kw)
+    assert h1["loss"] == g1["loss"] and h2["loss"] == g2["loss"]
+    _assert_same(_params(refilled), _params(fresh))
+
+
 def test_resident_composes_with_accumulation_and_spe():
     x, y = _xy(80)
     kw = dict(epochs=2, batch_size=16, verbose=False)

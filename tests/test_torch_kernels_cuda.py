@@ -1072,6 +1072,84 @@ def test_spe_graph_bit_equal_to_the_loop(kind, cache):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cast", ["bfloat16", "uint8"])
+def test_spe_graph_takes_a_new_upload(cast):
+    # Two resident fits over arrays refilled in place between them. The
+    # bf16 copy keeps its geometry and key: the one graph takes the new
+    # upload. The uint8 cast's lo and scale move with the data and are
+    # constants in the graph: a second capture. Both train as the loop.
+    from cloud_tpu_torch.training import trainer as ttrainer
+
+    dev = _card()
+    x, y = _image_data(48, 16, 5)
+    loop = _trainer_for("resnet", 1, dev)
+    graph = _trainer_for("resnet", 4, dev)
+    kw = dict(epochs=1, batch_size=8, cache="device", input_cast=cast)
+    captures = ttrainer.graph_captures()
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            runs.append((_fit_state(loop, x, y, **kw),
+                         _fit_state(graph, x, y, **kw)))
+            x *= -2.0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert ttrainer.graph_captures() == captures + (
+        1 if cast == "bfloat16" else 2)
+    for (h1, s1), (h4, s4) in runs:
+        assert h1["loss"] == h4["loss"]
+        for key in s1:
+            assert torch.equal(s1[key], s4[key]), key
+
+
+class _Noisy(torch.nn.Module):
+    """Draws a keep mask from its generator, its rate under another name
+    than `dropout_rate`."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.dense = torch.nn.Linear(16 * 16 * 3, 5, device=device)
+        self.keep = 0.9
+
+    def forward(self, x, generator=None):
+        h = x.reshape(x.shape[0], -1)
+        if generator is not None:
+            mask = torch.rand(h.shape, generator=generator, device=h.device)
+            h = h * (mask < self.keep) / self.keep
+        return self.dense(h)
+
+
+@pytest.mark.cuda
+def test_spe_refuses_a_step_it_cannot_capture():
+    from cloud_tpu_torch.models import ViT
+    from cloud_tpu_torch.training import trainer as ttrainer
+
+    dev = _card()
+    sgd = ttrainer.make_optimizer("sgd", 0.1)
+    for kw, match in ((dict(optimizer=sgd, gradient_accumulation_steps=2),
+                       "accumulation"),
+                      (dict(optimizer=ttrainer.make_optimizer(
+                          "sgd", ttrainer_schedule(0.1))), "SGD")):
+        trainer = ttrainer.Trainer(
+            _small_resnet(torch.float32, dev), steps_per_execution=2,
+            train_kwargs={"train": True}, **kw)
+        with pytest.raises(ValueError, match=match):
+            trainer.build()
+    x, y = _image_data(32, 16, 5)
+    vit = ViT(num_classes=5, patch_size=4, num_layers=1, num_heads=2,
+              d_model=32, d_ff=64, image_size=16, dropout_rate=0.1,
+              device=dev, seed=1)
+    for model, train_kwargs in ((vit, {"train": True}), (_Noisy(dev), {})):
+        trainer = ttrainer.Trainer(model, optimizer=sgd,
+                                   steps_per_execution=2,
+                                   train_kwargs=train_kwargs)
+        with pytest.raises(ValueError, match="draws dropout"):
+            trainer.fit(x, y, epochs=1, batch_size=8, verbose=False)
+        assert trainer.state.step == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["resnet", "vit"])
 def test_remat_bit_equal_to_plain_on_the_card(kind):
     dev = _card()
