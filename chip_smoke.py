@@ -490,6 +490,8 @@ def serve(model, ref_model, n_requests, n_sampled, kv_dtype, seed):
     from cloud_tpu_torch.ops import paged_attention as _  # noqa: F401
     from cloud_tpu_torch.serving import Scheduler, ServeRequest
 
+    from cloud_tpu_torch.ops import decode_block
+
     pa = sys.modules["cloud_tpu_torch.ops.paged_attention"]
     rng = np.random.default_rng(seed)
     requests = []
@@ -506,11 +508,12 @@ def serve(model, ref_model, n_requests, n_sampled, kv_dtype, seed):
         sched.warmup([16, 32, 64, 128, 256],
                      sampling_configs=((), dict(temperature=0.8, top_k=40)))
         pa.reset_launches()
+        decode_block.reset_launches()
         t0 = time.monotonic()
         futures = [sched.submit(r) for r in requests]
         results = [f.result(timeout=600) for f in futures]
         wall = time.monotonic() - t0
-        launches = dict(pa.launches)
+        launches = dict(pa.launches, **decode_block.launches)
         stats = sched.stats()
         sched.assert_drained()
     ticks = stats["ticks"]
@@ -577,26 +580,49 @@ def serve(model, ref_model, n_requests, n_sampled, kv_dtype, seed):
         "tick_p50_s": stats["token_latency"]["p50"],
         "greedy_exact_share": share, "greedy_worst_gap": worst,
     }
-    log("serve kv_dtype={!r}: {} requests, {} ticks, {} launches, "
+    log("serve kv_dtype={!r}: {} requests, {} ticks, launches {}, "
         "{:.1f} tokens/s, TTFT p50 {:.4f} s p99 {:.4f} s".format(
-            kv_dtype, n_requests, ticks, launches[name],
+            kv_dtype, n_requests, ticks, launches,
             summary["tokens_per_s"], summary["ttft_p50_s"],
             summary["ttft_p99_s"]))
-    return launches[name], summary
+    return launches, summary
 
 
-def tick_breakdown(model):
+def kernel_table(prof, calls, top=16):
+    """The device kernels of a profile by name, per call: [(count, us,
+    name)], the `top` that took the most time."""
+    import torch
+
+    table = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n, us = table.get(evt.name, (0, 0.0))
+        table[evt.name] = (n + 1, us + evt.time_range.elapsed_us())
+    rows = sorted(((n / calls, us / calls, name[:60])
+                   for name, (n, us) in table.items()), key=lambda r: -r[1])
+    return [(round(n, 2), round(us, 1), name) for n, us, name in rows[:top]]
+
+
+def tick_breakdown(model, graphs=None, kv_dtype=""):
     """One engine with all 8 slots decoding (128-token prompts): the
-    host wall time of 20 ticks, and under torch.profiler the device time
-    of all kernels and of the paged-attention kernels (the per-chunk
-    kernel and the merge). Returns a dict;
-    device figures are None when the profiler reports no device time."""
+    host wall time of each of 20 ticks (p50; tokens/s at 8 slots from
+    it), then under torch.profiler 20 more: the device time of all
+    kernels and of the paged-attention kernels (the per-chunk kernel and
+    the merge), the kernels a tick, the per-chunk kernel's count a tick,
+    and the busy share (device time over the profiled wall).
+    graphs: None replays the tick's CUDA graph (captured before the
+    timed ticks), False runs the tick eagerly (the engine's yardstick).
+    Returns a dict; device figures are None when the profiler reports
+    no device time."""
     import torch
     from cloud_tpu_torch.serving.engine import DecodeEngine
 
-    engine = DecodeEngine(model, SLOTS, PAGE, SLOTS * PAGES_PER_SLOT + 1)
+    engine = DecodeEngine(model, SLOTS, PAGE, SLOTS * PAGES_PER_SLOT + 1,
+                          graphs=graphs, page_dtype=kv_dtype)
     greedy = dict(temperature=0.0, top_k=None, top_p=None, eos_token=None)
     rng = np.random.default_rng(3)
+    engine.warm(widths=[128])
     for slot in range(SLOTS):
         result = engine.prefill(
             rng.integers(0, model.vocab_size, size=128), 64, slot, greedy)
@@ -608,6 +634,11 @@ def tick_breakdown(model):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     ticks = 20
+    host = []
+    for _ in range(ticks):
+        t1 = time.monotonic()
+        engine.tick()
+        host.append(time.monotonic() - t1)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
         for _ in range(ticks):
@@ -615,6 +646,10 @@ def tick_breakdown(model):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3 / ticks
     device_us = attn_us = 0.0
+    attn_kernels = 0
+    log("tick kernels ({}, {} pages; per tick: count, us): {}".format(
+        "replayed" if engine.graphs else "eager", kv_dtype or "bf16",
+        kernel_table(prof, ticks)))
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -622,15 +657,69 @@ def tick_breakdown(model):
         device_us += dev
         if "paged_attention_" in evt.name:
             attn_us += dev
-    out = {"tick_ms": wall_ms, "device_ms_per_tick": None,
-           "attention_ms_per_tick": None, "device_busy_share": None}
+        if "paged_attention_kernel" in evt.name:
+            attn_kernels += 1
+    out = {"graphs": engine.graphs, "kv_dtype": kv_dtype or "bf16",
+           "profiled_tick_ms": wall_ms, "kernels_per_tick": sum(
+               1 for evt in prof.events()
+               if evt.device_type == torch.autograd.DeviceType.CUDA) / ticks,
+           "tick_p50_ms": statistics.median(host) * 1e3,
+           "tokens_per_s": SLOTS / statistics.median(host),
+           "paged_kernels_per_tick": attn_kernels / ticks,
+           "device_ms_per_tick": None, "attention_ms_per_tick": None,
+           "device_busy_share": None}
     if device_us > 0:
         out.update(device_ms_per_tick=device_us / 1e3 / ticks,
                    attention_ms_per_tick=attn_us / 1e3 / ticks,
                    device_busy_share=device_us / 1e3 / ticks / wall_ms)
-    log("tick breakdown (8 slots, depth 128-192, under the profiler): "
-        "{}".format(json.dumps(out)))
+    # The per-chunk kernel counted over 5 ticks, up to three times, each
+    # after a warm-up step of the profiler (whose records are dropped):
+    # the profiler can drop a record at the start of a session in a
+    # long-lived process (a count below the launches; above them would
+    # be a launch too many).
+    counts = []
+
+    def count(prof):
+        counts.append(sum(
+            1 for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and "paged_attention_kernel" in evt.name))
+
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=acts, on_trace_ready=count,
+                schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                 active=1,
+                                                 repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(5):
+                    engine.tick()
+                torch.cuda.synchronize()
+                prof.step()
+        if counts and counts[-1] == 5 * model.num_layers:
+            break
+    out["paged_kernels_in_5_ticks"] = counts
+    log("tick breakdown ({}, {} pages, 8 slots, depth 128-192, under "
+        "the profiler): {}".format("replayed" if engine.graphs else "eager",
+                                   kv_dtype or "bf16", json.dumps(out)))
     return out
+
+
+def tick_breakdowns(model):
+    """The tick eager and replayed, side by side; the profiler must see
+    each layer's paged kernel once a tick, replayed and eager alike: in
+    one of three tries of 5 ticks, layers x 5, and never more."""
+    both = {"eager": tick_breakdown(model, graphs=False),
+            "replayed": tick_breakdown(model)}
+    want = 5 * model.num_layers
+    for label, out in both.items():
+        counts = out["paged_kernels_in_5_ticks"]
+        if max(counts) > want or want not in counts:
+            raise AssertionError(
+                "the profiler saw {} paged kernels in 5 {} ticks (three "
+                "tries); expected {} (layers x ticks) in one".format(
+                    counts, label, want))
+    return both
 
 
 # -- phase 3: flash attention against its plain version --------------
@@ -3696,6 +3785,582 @@ def image_phase(device, smi):
     return vit_launches, details
 
 
+# -- phase 12: serving's fixed-shape path ------------------------------
+
+# The decode block's kernels (`ops/decode_block.py`) at GPT-2 small's
+# serving shapes: add_layer_norm over the tick's 8 rows and a 1024-row
+# window; window_attention over windows of (rows, first position): a hit's
+# 4-token suffix after 1008 cached positions, a miss's 16-token window, a
+# chunk at 512; int8_page_write of one position of 8 slots (slot 3 dead).
+DECODE_NORM_ROWS = (SLOTS, 1024)
+DECODE_WINDOWS = ((4, 1008), (16, 0), (16, 512))
+
+
+def check_decode_kernels(device):
+    """The decode block's four kernels through their wrappers (launch
+    counted) against their plain versions on the same inputs:
+    add_layer_norm's y within NORM_TOL["bf16"] of the plain f32 y and h
+    bit-equal to x + r; window_attention within FLASH_TOL["bf16"] of the
+    plain bf16 output; int8_page_write's pages and scales and
+    page_gather's cache bit-equal. Then each timed at its main shape (the
+    tick's rows, a 16-token chunk at 512, the tick's 8 slots, a hit's
+    1008 positions) beside its bound, its plain version and a library
+    call (F.layer_norm of x + r, SDPA with the mask; none for the page
+    write and the gather). Returns rows by kernel name."""
+    import torch
+    import torch.nn.functional as F
+    from cloud_tpu_torch.ops import decode_block as db
+
+    rng = np.random.default_rng(40)
+    d_model = HEADS * HEAD_DIM
+    rows_out = {}
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return torch.tensor(scale * rng.standard_normal(shape,
+                                                        dtype=np.float32),
+                            dtype=dtype, device=device)
+
+    # add_layer_norm
+    w = randn(d_model, scale=0.1) + 1.0
+    b = randn(d_model, scale=0.1)
+    err = 0.0
+    for rows in DECODE_NORM_ROWS:
+        x = randn(rows, d_model, scale=3.0)
+        r = randn(rows, d_model, dtype=torch.bfloat16)
+        before = db.launches["add_layer_norm"]
+        y, h = db.add_layer_norm(x, r, w, b, 1e-5, torch.bfloat16)
+        torch.cuda.synchronize()
+        if db.launches["add_layer_norm"] != before + 1:
+            raise AssertionError("add_layer_norm did not launch")
+        plain, plain_h = db.add_layer_norm_reference(x, r, w, b, 1e-5,
+                                                     torch.float32)
+        row = compare(y, plain, *NORM_TOL["bf16"])
+        log("add_layer_norm (rows {}, D {}, f32 + bf16 -> bf16): of the "
+            "bound (rtol {} + atol {} x row rms) {:.3f}; max abs err {:.3e}; "
+            "h bit-equal {}".format(rows, d_model, *NORM_TOL["bf16"],
+                                    row["tol_ratio"], row["max_abs_err"],
+                                    torch.equal(h, plain_h)))
+        if (not torch.equal(h, plain_h) or y.dtype != torch.bfloat16
+                or not row["tol_ratio"] <= 1.0):
+            raise AssertionError("add_layer_norm disagrees with its plain "
+                                 "version: {}".format(row))
+        err = max(err, row["max_abs_err"])
+    x = randn(SLOTS, d_model, scale=3.0)
+    r = randn(SLOTS, d_model, dtype=torch.bfloat16)
+    cost = db.add_layer_norm_cost(SLOTS, d_model)
+    row = rows_out["add_layer_norm"] = {
+        "max_abs_err": err,
+        "ms": timed_ms(lambda: db.add_layer_norm(x, r, w, b, 1e-5,
+                                                 torch.bfloat16)),
+        "plain_ms": timed_ms(lambda: db.add_layer_norm_reference(
+            x, r, w, b, 1e-5, torch.bfloat16)),
+        "library_ms": timed_ms(lambda: F.layer_norm(x + r, (d_model,), w, b,
+                                                    1e-5))}
+    row["bound_ms"], row["bound_by"] = bound_of(cost)
+
+    # window_attention
+    length = PAGES_PER_SLOT * PAGE
+    cache = randn(2, length, HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    scale = 1.0 / HEAD_DIM ** 0.5
+    tol = FLASH_TOL["bf16"]
+    err = 0.0
+    inputs = {}
+    for rows, start in DECODE_WINDOWS:
+        qkv = randn(rows, 3, HEADS, HEAD_DIM, dtype=torch.bfloat16)
+        q = qkv[:, 0]
+        keys = torch.arange(length, device=device)
+        last = start + torch.arange(rows, device=device)
+        bias = torch.where(keys[None, :] <= last[:, None], 0.0, -1e30)
+        before = db.launches["window_attention"]
+        out = db.window_attention(q, cache[0], cache[1], bias, scale)
+        torch.cuda.synchronize()
+        if db.launches["window_attention"] != before + 1:
+            raise AssertionError("window_attention did not launch")
+        plain = db.window_attention_reference(q, cache[0], cache[1], bias,
+                                              scale)
+        row = compare(out, plain, tol["rtol"], tol["atol"])
+        log("window_attention (rows {} from {}, L {}, H {}, D {}, bf16): of "
+            "the bound (rtol {} + atol {} x row rms) {:.3f}; max abs err "
+            "{:.3e}".format(rows, start, length, HEADS, HEAD_DIM, tol["rtol"],
+                            tol["atol"], row["tol_ratio"],
+                            row["max_abs_err"]))
+        if not torch.isfinite(out).all() or not row["tol_ratio"] <= 1.0:
+            raise AssertionError("window_attention disagrees with its "
+                                 "plain version: {}".format(row))
+        err = max(err, row["max_abs_err"])
+        inputs[(rows, start)] = (q, bias)
+    q, bias = inputs[(16, 512)]
+    qh, kh, vh = (q.transpose(0, 1)[None], cache[0].transpose(0, 1)[None],
+                  cache[1].transpose(0, 1)[None])
+    cost = db.window_attention_cost(16, length, HEADS, HEAD_DIM)
+    row = rows_out["window_attention"] = {
+        "max_abs_err": err,
+        "ms": timed_ms(lambda: db.window_attention(q, cache[0], cache[1],
+                                                   bias, scale)),
+        "plain_ms": timed_ms(lambda: db.window_attention_reference(
+            q, cache[0], cache[1], bias, scale)),
+        "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=bias.to(torch.bfloat16), scale=scale))}
+    row["bound_ms"], row["bound_by"] = bound_of(cost)
+
+    # int8_page_write
+    num_pages = SLOTS * PAGES_PER_SLOT + 1
+    pages = torch.tensor(rng.integers(-127, 128, size=(
+        2, num_pages, PAGE, HEADS, HEAD_DIM)), dtype=torch.int8, device=device)
+    scales = torch.tensor(rng.uniform(0.0, 0.02, size=(2, num_pages, HEADS)),
+                          dtype=torch.float32, device=device)
+    scales[:, 5] = 0.0
+    kv = randn(2, SLOTS, 1, HEADS, HEAD_DIM, dtype=torch.bfloat16,
+               scale=2.0)
+    phys = torch.tensor(1 + 9 * np.arange(SLOTS)[:, None], device=device)
+    phys[2, 0] = 5
+    off = torch.tensor(rng.integers(0, PAGE, size=(SLOTS, 1)), device=device)
+    valid = torch.ones((SLOTS, 1), dtype=torch.bool, device=device)
+    valid[3] = False
+    got = (pages.clone(), scales.clone())
+    want = (pages.clone(), scales.clone())
+    before = db.launches["int8_page_write"]
+    db.int8_page_write(*got, kv, phys, off, valid)
+    torch.cuda.synchronize()
+    if db.launches["int8_page_write"] != before + 1:
+        raise AssertionError("int8_page_write did not launch")
+    db.int8_page_write_reference(*want, kv, phys, off, valid)
+    grown = int((got[1] != scales).sum())
+    log("int8_page_write ({} slots, H {}, D {}, page {}): pages bit-equal "
+        "{}, scales bit-equal {}; {} of {} page blocks rescaled".format(
+            SLOTS, HEADS, HEAD_DIM, PAGE, torch.equal(got[0], want[0]),
+            torch.equal(got[1], want[1]), grown, 2 * SLOTS * HEADS))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("int8_page_write differs from its plain "
+                             "version")
+    # Timed on the written pages: a repeat grows no scale, so the bound
+    # counts no rescaled block.
+    cost = db.int8_page_write_cost(SLOTS, HEADS, HEAD_DIM, PAGE)
+    row = rows_out["int8_page_write"] = {
+        "max_abs_err": 0.0,
+        "ms": timed_ms(lambda: db.int8_page_write(*got, kv, phys, off,
+                                                  valid)),
+        "plain_ms": timed_ms(lambda: db.int8_page_write_reference(
+            *want, kv, phys, off, valid)),
+        "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound_of(cost)
+    # page_gather: a hit's 1008 positions (63 pages), fp and int8 pages.
+    layers = GPT2_SMALL["num_layers"]
+    gvec = torch.tensor(1 + rng.permutation(num_pages - 1)[:PAGES_PER_SLOT],
+                        device=device)
+    plen = torch.tensor(1008, device=device)
+    out = torch.empty((layers, 2, 1, length, HEADS, HEAD_DIM),
+                      dtype=torch.bfloat16, device=device)
+    want = torch.empty_like(out)
+    fp = randn(layers, 2, 64, PAGE, HEADS, HEAD_DIM, dtype=torch.bfloat16)
+    q8 = torch.tensor(rng.integers(-127, 128, size=(
+        layers, 2, 64, PAGE, HEADS, HEAD_DIM)), dtype=torch.int8,
+        device=device)
+    s8 = torch.tensor(rng.uniform(0.0, 0.02, size=(layers, 2, 64, HEADS)),
+                      dtype=torch.float32, device=device)
+    gvec = gvec % 64
+    for label, pages, scales in (("bf16", fp, None), ("int8", q8, s8)):
+        before = db.launches["page_gather"]
+        db.page_gather(pages, scales, gvec, plen, out)
+        torch.cuda.synchronize()
+        if db.launches["page_gather"] != before + 1:
+            raise AssertionError("page_gather did not launch")
+        db.page_gather_reference(pages, scales, gvec, plen, want)
+        log("page_gather ({} pages, {} layers, 1008 of {} positions): "
+            "bit-equal {}".format(label, layers, length,
+                                  torch.equal(out, want)))
+        if not torch.equal(out, want):
+            raise AssertionError("page_gather differs from its plain "
+                                 "version ({} pages)".format(label))
+    cost = db.page_gather_cost(layers, length, HEADS, HEAD_DIM, plen=1008)
+    row = rows_out["page_gather"] = {
+        "max_abs_err": 0.0,
+        "ms": timed_ms(lambda: db.page_gather(fp, None, gvec, plen, out)),
+        "plain_ms": timed_ms(lambda: db.page_gather_reference(
+            fp, None, gvec, plen, want)),
+        "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound_of(cost)
+    del fp, q8, out, want
+
+    for name, row in rows_out.items():
+        log("kernel {}: {:.4f} ms (bound {:.5f} ms by {}), plain {:.4f} ms, "
+            "library {} ms; max abs err {:.3e}".format(
+                name, row["ms"], row["bound_ms"], row["bound_by"],
+                row["plain_ms"], row["library_ms"], row["max_abs_err"]))
+    return rows_out
+
+
+
+# Phase 12's replay check: ticks driven, and a request enters or leaves
+# every REPLAY_EVERY ticks.
+REPLAY_TICKS, REPLAY_EVERY = 30, 3
+
+
+def replay_check(model, kv_dtype):
+    """A replayed tick against an eager one, bit for bit: two engines on
+    one model, one replaying CUDA graphs and one eager (graphs=False),
+    driven through the same prefills (miss and prefix hit, greedy and
+    sampled; the dense caches compared whole), inserts, ticks (the
+    tokens and the [S, V] f32 logits compared) and evicts. Also counts
+    the replayed engine's paged launches (layers x ticks) and holds its
+    retrace sentinel after `warm`."""
+    import torch
+    from cloud_tpu_torch.ops.paged_attention import launches
+    from cloud_tpu_torch.serving.engine import DecodeEngine
+
+    name = "paged_attention_int8" if kv_dtype else "paged_attention"
+    engines = [DecodeEngine(model, SLOTS, PAGE, SLOTS * PAGES_PER_SLOT + 1,
+                            page_dtype=kv_dtype, graphs=graphs)
+               for graphs in (None, False)]
+    t0 = time.monotonic()
+    captures = engines[0].warm(widths=[2 ** i for i in range(9)])
+    capture_s = time.monotonic() - t0
+    engines[0].mark_warm()
+    rng = np.random.default_rng(12)
+    root = rng.integers(0, model.vocab_size, size=100).tolist()
+    greedy = dict(temperature=0.0, top_k=None, top_p=None, eos_token=None)
+    sampled = dict(greedy, temperature=0.8, top_k=40)
+    mism = {"prefill": 0, "tick": 0}
+    launched = ticks = entered = 0
+    resident = {}
+
+    def enter(slot):
+        nonlocal entered
+        hit = entered % 3 == 2 and entered > 0
+        if hit:
+            prompt = root[:70] + rng.integers(
+                0, model.vocab_size, size=int(rng.integers(5, 60))).tolist()
+        else:
+            prompt = (root if entered == 0 else rng.integers(
+                0, model.vocab_size, size=int(rng.integers(16, 200)))
+                .tolist())
+        sampling = sampled if entered % 2 else greedy
+        vec = 1 + slot * PAGES_PER_SLOT + np.arange(PAGES_PER_SLOT)
+        kw = {}
+        if hit:
+            # The root's first four pages, resident in slot 0's table.
+            shared = 1 + np.arange(4)
+            kw = dict(prefix_len=64, gather_vec=shared)
+            vec = np.concatenate([shared, vec[4:]])
+        outs = [eng.prefill(prompt, 40, 100 + entered, sampling, **kw)
+                for eng in engines]
+        same = outs[0].first_token == outs[1].first_token and all(
+            torch.equal(outs[0].pcache["store"][k], outs[1].pcache["store"][k])
+            for k in outs[0].pcache["store"])
+        mism["prefill"] += not same
+        scatter = vec.copy()
+        if hit:
+            scatter[:4] = 0
+        for eng, out in zip(engines, outs):
+            eng.insert(slot, out, vec, scatter, sampling)
+        resident[slot] = entered
+        entered += 1
+
+    for slot in range(SLOTS - 2):
+        enter(slot)
+    for t in range(REPLAY_TICKS):
+        before = launches[name]
+        got = engines[0].tick()
+        launched += launches[name] - before
+        ticks += 1
+        want = engines[1].tick()
+        same = np.array_equal(got, want) and torch.equal(
+            engines[0]._tk["logits"], engines[1]._tk["logits"])
+        mism["tick"] += not same
+        done = [s for s in range(SLOTS) if got[1][s]]
+        if t % REPLAY_EVERY == REPLAY_EVERY - 1:
+            # A slot (not slot 0, whose pages the hits share) leaves,
+            # and a request enters a free slot.
+            live = [s for s in resident if s != 0]
+            if live and not done:
+                done = [live[t % len(live)]]
+        if done:
+            mask = np.zeros(SLOTS, bool)
+            mask[done] = True
+            for eng in engines:
+                eng.evict(mask)
+            for s in done:
+                resident.pop(s, None)
+        free = [s for s in range(1, SLOTS) if s not in resident]
+        if t % REPLAY_EVERY == REPLAY_EVERY - 1 and free:
+            enter(free[0])
+    engines[0].check_no_retrace()
+    out = {"kv_dtype": kv_dtype or "bf16", "ticks": ticks,
+           "requests": entered, "launches": launched,
+           "captures": captures, "capture_s": capture_s,
+           "mismatched_ticks": mism["tick"],
+           "mismatched_prefills": mism["prefill"]}
+    log("replay check kv_dtype={!r}: {}".format(kv_dtype, json.dumps(out)))
+    if mism["tick"] or mism["prefill"]:
+        raise AssertionError(
+            "replayed ticks/prefills differ from eager ones: {}".format(
+                mism))
+    if launched != model.num_layers * ticks:
+        raise AssertionError(
+            "{} launches {} over {} replayed ticks; expected {}".format(
+                name, launched, ticks, model.num_layers * ticks))
+    return out
+
+
+def prefill_breakdown(model):
+    """Where a prefill's time goes, on one engine (bf16, GPT-2 small): a
+    1012-token miss (window 1024), a hit over 1008 cached positions
+    (window 4), a 12-token miss (window 16), a 400-token miss (window
+    512) and one intermediate 16-token chunk: the host wall of each
+    call (median of 10) and, under torch.profiler, its device time and
+    kernels."""
+    import torch
+    from cloud_tpu_torch.serving.engine import DecodeEngine
+
+    engine = DecodeEngine(model, SLOTS, PAGE, SLOTS * PAGES_PER_SLOT + 1)
+    greedy = dict(temperature=0.0, top_k=None, top_p=None, eos_token=None)
+    engine.warm(widths=[4, 16, 512, 1024], chunk_sizes=[16])
+    rng = np.random.default_rng(21)
+    root = rng.integers(0, model.vocab_size, size=1008).tolist()
+    vec = 1 + np.arange(PAGES_PER_SLOT)
+    engine.insert(0, engine.prefill(root + [7, 8, 9, 10], 4, 0, greedy),
+                  vec, vec, greedy)
+    long = rng.integers(0, model.vocab_size, size=1012).tolist()
+    calls = {
+        "miss_1024": lambda: engine.prefill(long, 2, 0, greedy),
+        "hit_4": lambda: engine.prefill(root + [1, 2, 3], 2, 0, greedy,
+                                        prefix_len=1008,
+                                        gather_vec=vec[:63]),
+        "miss_16": lambda: engine.prefill(long[:12], 2, 0, greedy),
+        "miss_512": lambda: engine.prefill(long[:400], 2, 0, greedy),
+    }
+    chunked = engine.prefill_chunks(long[:400], 2, 0, greedy, 16)
+    chunked.step()
+    calls["chunk_16"] = chunked.step
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, call in calls.items():
+        host = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            result = call()
+            torch.cuda.synchronize()
+            host.append(time.monotonic() - t0)
+            if result is not None:
+                engine.release_prefill(result)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                result = call()
+                if result is not None:
+                    engine.release_prefill(result)
+            torch.cuda.synchronize()
+        kernels = [evt for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA]
+        log("prefill kernels {} (per call: count, us): {}".format(
+            name, kernel_table(prof, 3)))
+        out[name] = {"host_ms": statistics.median(host) * 1e3,
+                     "device_ms": sum(e.time_range.elapsed_us()
+                                      for e in kernels) / 3e3,
+                     "kernels": len(kernels) / 3}
+    chunked.abandon()
+    # Replayed windows against eager ones at the widths past the replay
+    # check's (512, 1024): the last row's logits, bit for bit or not.
+    eager = DecodeEngine(model, SLOTS, PAGE, SLOTS * PAGES_PER_SLOT + 1,
+                         graphs=False)
+    for name, prompt in (("miss_512", long[:400]), ("miss_1024", long)):
+        rows = []
+        for eng in (engine, eager):
+            eng.release_prefill(eng.prefill(prompt, 2, 0, greedy))
+            rows.append(eng._pf["row"].clone())
+        out[name]["replay_row_max_abs_diff"] = float(
+            (rows[0] - rows[1]).abs().max())
+    log("prefill breakdown: {}".format(json.dumps(out)))
+    return out
+
+
+def window_judge(model, ref_model, kv_dtype):
+    """Phase 12's bit-identity gate, measured: where served requests
+    differ from their solo `generate()` (a hit's or a chunk's window has
+    another shape than the solo prefill's, so cuBLAS may sum a row in
+    another order), each of them must be greedy, and the leg's greedy
+    tokens must pass phase 5's teacher-forced f32 gate (LOGIT_MARGIN,
+    MIN_EXACT over all of them). Reports the count and, at the first
+    differing step, |delta logit| between the served and the solo token
+    in the f32 forward."""
+    import torch
+
+    def judge(label, requests, results, oracle):
+        bad = [i for i, (res, ref) in enumerate(zip(results, oracle))
+               if not np.array_equal(res.tokens, ref)]
+        details = {"mismatched": bad}
+        if not bad:
+            return [], details
+        failures = []
+        exact = total = 0
+        worst = first_delta = 0.0
+        for i, (req, res) in enumerate(zip(requests, results)):
+            if req.temperature:
+                if i in bad:
+                    failures.append("{}: sampled request {} differs from "
+                                    "solo generate()".format(label, i))
+                continue
+            p = len(req.prompt)
+            tokens = torch.as_tensor(res.tokens, device=model.device)[None]
+            with torch.no_grad():
+                logits = ref_model(tokens, None, ref_model.init_cache(1))[0]
+            rows = logits[p - 1:p - 1 + req.max_new_tokens]
+            served = tokens[0, p:]
+            chosen = rows.gather(1, served[:, None])[:, 0]
+            worst = max(worst, float((rows.max(dim=1).values
+                                      - chosen).max()))
+            exact += int((rows.argmax(dim=1) == served).sum())
+            total += req.max_new_tokens
+            if i in bad:
+                k = int(np.flatnonzero(res.tokens[p:] != oracle[i][p:])[0])
+                first_delta = max(first_delta, abs(float(
+                    rows[k, int(res.tokens[p + k])]
+                    - rows[k, int(oracle[i][p + k])])))
+        share = exact / total if total else 1.0
+        if worst > LOGIT_MARGIN[kv_dtype] or share < MIN_EXACT:
+            failures.append(
+                "{}: requests {} differ from solo generate() and the "
+                "served tokens fail the teacher-forced gate (worst gap "
+                "{:.4f}, margin {}; exact share {:.4f}, need {})".format(
+                    label, bad, worst, LOGIT_MARGIN[kv_dtype], share,
+                    MIN_EXACT))
+        details.update(worst_gap=worst, exact_share=share,
+                       first_step_delta_logit=first_delta)
+        log("{} kv_dtype={!r}: {} of {} requests differ from solo "
+            "generate(); teacher-forced over the leg's greedy requests: "
+            "{}".format(label, kv_dtype, len(bad), len(requests), details))
+        return failures, details
+    return judge
+
+
+def serving_scenarios(device):
+    """Phase 12's scenarios: `serving/smoke.py`'s base, prefix and
+    chunked for both page dtypes at GPT-2 small's full width (random
+    weights, seed 0), judged by `window_judge`. Returns (the launches of
+    the paged and decode-block kernels over the scenarios, the summaries
+    by name, the failures)."""
+    import torch
+    from cloud_tpu_torch.models import TransformerLM
+    from cloud_tpu_torch.ops import decode_block, paged_attention  # noqa
+    from cloud_tpu_torch.serving import smoke
+
+    pa = sys.modules["cloud_tpu_torch.ops.paged_attention"]
+    model = TransformerLM(compute_dtype=torch.bfloat16, device=device,
+                          seed=0, **GPT2_SMALL)
+    ref_model = TransformerLM(compute_dtype=torch.float32, device=device,
+                              seed=0, **GPT2_SMALL)
+    ref_model.load_state_dict(model.state_dict())
+    scenarios, failures = {}, []
+    pa.reset_launches()
+    decode_block.reset_launches()
+    for kv in ("", "int8"):
+        judge = window_judge(model, ref_model, kv)
+        for name, run in (("base", smoke.run_base),
+                          ("prefix", smoke.run_prefix),
+                          ("chunked", smoke.run_chunked)):
+            t1 = time.monotonic()
+            summary = run(model, kv_dtype=kv, judge=judge)
+            log("phase 12 {} {}: {}".format(name, kv or "bf16", json.dumps(
+                {k: v for k, v in summary.items()
+                 if not isinstance(v, (dict, list))})))
+            summary["seconds"] = time.monotonic() - t1
+            scenarios["{}_{}".format(name, kv or "bf16")] = summary
+            failures += ["{} {}: {}".format(name, kv or "bf16", f)
+                         for f in summary["failures"]]
+            for warning in summary["warnings"]:
+                log("phase 12 {} {}: WARN {}".format(name, kv or "bf16",
+                                                      warning))
+    return dict(pa.launches, **decode_block.launches), scenarios, failures
+
+
+def scenarios_in_child(root):
+    """`serving_scenarios` in a process of its own (`python3
+    chip_smoke.py --phase12-scenarios PATH`), as a server runs: nothing
+    of the earlier phases (the profiler's hooks, the allocator's cache,
+    the heap) weighs on the scenarios' same-rig ratios, which read host
+    latencies of a millisecond or so. Relays its log; returns its JSON."""
+    path = os.path.join(root, "build", "chip_smoke_scenarios.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase12-scenarios",
+         path], cwd=root, capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        log("  " + line)
+    if proc.returncode != 0 or not os.path.exists(path):
+        raise AssertionError(
+            "phase 12's scenarios failed in their own process (exit {}):"
+            "\n{}".format(proc.returncode, proc.stderr[-4000:]))
+    with open(path) as f:
+        return json.load(f)
+
+
+def serving_phase(device, smi, root):
+    """Phase 12: serving's fixed-shape path at GPT-2 small's full width
+    (random weights, seed 0): the replay check for both page dtypes, the
+    tick eager and replayed, a prefill breakdown, then (in a process of
+    their own, `scenarios_in_child`) `serving/smoke.py`'s base, prefix
+    and chunked scenarios for both page dtypes. Returns (the kernels'
+    launches over the scenarios, summary); the summary's "failures" fail
+    the phase (`raise_if_failed`)."""
+    import torch
+    from cloud_tpu_torch.models import TransformerLM
+
+    t0 = time.monotonic()
+    model = TransformerLM(compute_dtype=torch.bfloat16, device=device,
+                          seed=0, **GPT2_SMALL)
+    out = {"nvidia_smi": smi,
+           "replay": [replay_check(model, kv) for kv in ("", "int8")],
+           "tick": tick_breakdowns(model),
+           "tick_int8": tick_breakdown(model, kv_dtype="int8"),
+           "prefill": prefill_breakdown(model)}
+    del model
+    torch.cuda.empty_cache()
+    child = scenarios_in_child(root)
+    out["scenarios"] = child["scenarios"]
+    failures = child["failures"]
+    out["seconds"] = time.monotonic() - t0
+    for kv in ("bf16", "int8"):
+        base = out["scenarios"]["base_" + kv]
+        prefix = out["scenarios"]["prefix_" + kv]
+        chunked = out["scenarios"]["chunked_" + kv]
+        log("phase 12 ({}; {}): base {:.1f} tokens/s against "
+            "batch-synchronous {:.1f} ({:.2f}x); TTFT p50/p99 hit "
+            "{:.4f}/{:.4f} s, off {:.4f}/{:.4f} s ({:.2f}x); decode-gap "
+            "p99 chunked {:.4f} s, unchunked {:.4f} s ({:.2f}x); warm-up "
+            "captures {} in {:.2f} s (base)".format(
+                kv, smi, base["serve_tokens_per_sec"],
+                base["baseline_tokens_per_sec"], base["speedup"],
+                prefix["ttft_hit_p50_s"], prefix["ttft_hit_p99_s"],
+                prefix["ttft_off_p50_s"], prefix["ttft_off_p99_s"],
+                prefix["ttft_ratio"], chunked["decode_gap_p99_chunked_s"],
+                chunked["decode_gap_p99_unchunked_s"],
+                chunked["decode_gap_ratio"], base["captures"],
+                base["capture_seconds"]))
+    tick = out["tick"]
+    log("phase 12 ({}): tick p50 eager {:.3f} ms, replayed {:.3f} ms; "
+        "{:.1f} / {:.1f} tokens/s, busy under the profiler {} / {}; "
+        "{:.1f} s".format(
+            smi, tick["eager"]["tick_p50_ms"],
+            tick["replayed"]["tick_p50_ms"], tick["eager"]["tokens_per_s"],
+            tick["replayed"]["tokens_per_s"],
+            tick["eager"]["device_busy_share"],
+            tick["replayed"]["device_busy_share"], out["seconds"]))
+    out["launches"] = child["launches"]
+    out["failures"] = failures
+    return child["launches"], out
+
+
+def raise_if_failed(serving):
+    """Phase 12 fails on any of its scenarios' failures (raised after
+    the run's details are written)."""
+    if serving["failures"]:
+        raise AssertionError("phase 12 failed: {}".format(
+            "; ".join(serving["failures"])))
+
+
 def llama_gate_seeds(seeds, out_path):
     """Phase 7's fit alone (`llama_data`, `llama_fit`; no other check),
     once per data seed, on the `cloud_tpu_torch` that is first on
@@ -3850,7 +4515,36 @@ def main():
             time.monotonic() - t_start))
         return 0
 
+    if "--phase12-scenarios" in sys.argv:
+        # The scenarios alone, for serving_phase (no contract line).
+        path = sys.argv[sys.argv.index("--phase12-scenarios") + 1]
+        launches, scenarios, failures = serving_scenarios(device)
+        with open(path, "w") as f:
+            json.dump({"launches": launches, "scenarios": scenarios,
+                       "failures": failures}, f, indent=1, default=str)
+        return 0
+
+    if "--phase12" in sys.argv:
+        # python3 chip_smoke.py --phase12: the build, the paged and
+        # decode-block kernels' checks and phase 12 alone (no contract
+        # line).
+        rows = check_kernels(device)
+        rows.update(check_decode_kernels(device))
+        _, serving = serving_phase(device, smi, root)
+        os.makedirs(os.path.join(root, "build"), exist_ok=True)
+        with open(os.path.join(root, "build", "chip_smoke_phase12.json"),
+                  "w") as f:
+            json.dump({"nvidia_smi": smi, "kernels": rows,
+                       "serving": serving,
+                       "run_s": time.monotonic() - t_start}, f, indent=1,
+                      default=str)
+        log("phase 12 alone: whole run {:.1f} s".format(
+            time.monotonic() - t_start))
+        raise_if_failed(serving)
+        return 0
+
     rows = check_kernels(device)
+    rows.update(check_decode_kernels(device))
     flash_err, flash_details = check_flash_kernels(device)
     flash_rows = time_flash_kernels(device)
     flash_rows_llama = time_flash_kernels(device, (LLAMA_BATCH, LLAMA_SEQ,
@@ -3871,7 +4565,7 @@ def main():
     ref_model.load_state_dict(model.state_dict())
     launches_fp, serve_fp = serve(model, ref_model, 16, 4, "", seed=1)
     launches_q, serve_q = serve(model, ref_model, 8, 2, "int8", seed=2)
-    breakdown = tick_breakdown(model)
+    breakdown = tick_breakdowns(model)
     del model, ref_model
     torch.cuda.empty_cache()
     flash_launches, training = train(device)
@@ -3892,6 +4586,9 @@ def main():
     loop["phase10_s"] = time.monotonic() - t_phase10
     log("phase 10 took {:.1f} s".format(loop["phase10_s"]))
     vit_launches, images = image_phase(device, smi)
+    t_phase12 = time.monotonic()
+    graph_launches, serving = serving_phase(device, smi, root)
+    log("phase 12 took {:.1f} s".format(time.monotonic() - t_phase12))
 
     # One row per kernel and path that launches it: the launches counted
     # from 0 around that path's run, the times and errors at its shape.
@@ -3899,10 +4596,37 @@ def main():
     # for each.
     entries = [
         ("paged_attention", "paged_attention.cu", "paged_attention.py:164",
-         "serve_fp", launches_fp, rows["paged_attention"]),
+         "serve_fp", launches_fp["paged_attention"],
+         rows["paged_attention"]),
         ("paged_attention_int8", "paged_attention.cu",
-         "paged_attention.py:207", "serve_int8", launches_q,
+         "paged_attention.py:207", "serve_int8",
+         launches_q["paged_attention_int8"], rows["paged_attention_int8"]),
+        # Phase 12: inside the replayed ticks of the serving scenarios.
+        ("paged_attention", "paged_attention.cu", "paged_attention.py:164",
+         "serve_graph", graph_launches["paged_attention"],
+         rows["paged_attention"]),
+        ("paged_attention_int8", "paged_attention.cu",
+         "paged_attention.py:207", "serve_graph",
+         graph_launches["paged_attention_int8"],
          rows["paged_attention_int8"])]
+    # The decode block's kernels replace no Pallas kernel: XLA fuses
+    # these steps of JAX's decode forward (the LayerNorms with the
+    # residual adds, `_decode_attention`, the int8 page write).
+    decode_kernels = (
+        ("add_layer_norm", "models/transformer.py:307",
+         ("serve_fp", launches_fp), ("serve_int8", launches_q),
+         ("serve_graph", graph_launches)),
+        ("window_attention", "models/transformer.py:86",
+         ("serve_graph", graph_launches)),
+        ("int8_page_write", "models/transformer.py:246",
+         ("serve_int8", launches_q), ("serve_graph", graph_launches)),
+        ("page_gather", "serving/engine.py:852",
+         ("serve_fp", launches_fp), ("serve_int8", launches_q),
+         ("serve_graph", graph_launches)))
+    for name, replaces, *paths in decode_kernels:
+        for path, launched in paths:
+            entries.append((name, "decode_block.cu", replaces, path,
+                            launched[name], rows[name]))
     loop_launches = {k: loop["launches_u"][k] + loop["launches_r"][k]
                      for k in loop["launches_u"]}
     for path, times, launched in (
@@ -3944,7 +4668,9 @@ def main():
     kernels = [{
         "name": name, "route": "cuda",
         "source": "cloud_tpu_torch/ops/csrc/" + source,
-        "replaces": "cloud_tpu/ops/" + replaces, "path": path,
+        "replaces": ("cloud_tpu/" if replaces.startswith(("models/",
+                                                           "serving/"))
+                     else "cloud_tpu/ops/") + replaces, "path": path,
         "launches": launches, "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -3977,9 +4703,15 @@ def main():
                    "qwen3moe_generate": qwen3_generation,
                    "qwen3moe_norm_rows": qwen3_norm_rows,
                    "lm_head_loss": head_loss, "training_loop": loop,
-                   "images": images,
+                   "images": images, "serving_graphs": serving,
                    "build_logs": _build.build_logs}, f,
                   indent=1, default=str)
+    raise_if_failed(serving)
+    idle = ["{} on {}".format(k["name"], k["path"]) for k in kernels
+            if not k["launches"]]
+    if idle:
+        raise AssertionError("kernels launched no time on their path: "
+                             "{}".format(", ".join(idle)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": device_info}), flush=True)

@@ -4,10 +4,10 @@ attention; the port of `cloud_tpu/models/decoding.py`.
 Caches are plain dicts (built by `TransformerLM.init_cache` and
 `LlamaLM.init_cache`), updated in place: a decode call writes its K/V
 and bookkeeping into the tensors it is given, where the JAX package
-returns a new cache tree. One attention layer's dense cache
-(`dense_cache_layer`) holds K/V [B, L, H_kv, D] in the compute dtype and
+returns a new cache tree. One attention layer's dense cache holds K/V
+[B, L, H_kv, D] in the compute dtype and
 
-  cache_index  int      slot write pointer (shared across examples)
+  cache_index  slot write pointer (shared across examples)
   slot_valid   [B, L]   True where a real token was written
   slot_pos     [B, L]   the slot's LOGICAL position (real tokens only)
   token_count  [B]      number of real tokens seen per example
@@ -18,6 +18,16 @@ and a paged cache (one row per serving slot) holds
   slot_valid   [S, L]   True where a real token was written
 
 beside its page arrays (see `TransformerLM.init_cache`).
+
+`LlamaLM`'s dense cache (`dense_cache_layer`) keeps `cache_index` as a
+host int (`decode_slot_update`). `TransformerLM`'s caches
+(`transformer_dense_cache`, and the paged pool) are the ones the
+serving engine replays as CUDA graphs, so every piece of their state
+lives on the device and moves in place: `cache_index` is a 0-d int64
+tensor (`dense_slot_update`), and the bookkeeping tensors are one set
+shared by every layer, updated once per decode call. A graph then
+replays at whatever depth its cache holds, as JAX's one executable
+serves a prefill at any start.
 
 Sampling draws from `torch.Generator`s seeded per step: a request's
 seed gives one int64 seed per generated token (`sample_seeds`; column
@@ -74,6 +84,36 @@ def decode_slot_update(cache, mask, batch, seq, cache_len):
     return idx, positions, allowed
 
 
+def dense_slot_update(cache, mask, batch, seq):
+    """`decode_slot_update` for a cache whose write pointer
+    `cache_index` is a 0-d int64 device tensor: the pointer is read and
+    advanced on the device only (no host read, so a CUDA graph of the
+    call replays at any depth). The caller keeps the writes inside the
+    cache (the engine's prefill checks prefix + bucket on the host), as
+    JAX's dynamic_update_slice leaves it to its caller.
+
+    Returns (slots, allowed):
+      slots    [seq] int64: the cache slots this call writes;
+      allowed  [B, seq, L] bool: slot-order causality AND validity.
+    """
+    device = cache["slot_valid"].device
+    cache_len = cache["slot_valid"].shape[1]
+    m = (torch.ones((batch, seq), dtype=torch.int32, device=device)
+         if mask is None else mask.to(torch.int32))
+    idx = cache["cache_index"]
+    slots = idx + torch.arange(seq, device=device)
+    positions = (cache["token_count"][:, None] + torch.cumsum(m, 1)
+                 - m).to(torch.int32)
+    cache["slot_valid"].index_copy_(1, slots, m.bool())
+    cache["slot_pos"].index_copy_(1, slots, positions)
+    idx.add_(seq)
+    cache["token_count"] += m.sum(dim=1).to(torch.int32)
+    key_slots = torch.arange(cache_len, device=device)
+    allowed = (cache["slot_valid"][:, None, :]
+               & (key_slots[None, None, :] <= slots[None, :, None]))
+    return slots, allowed
+
+
 def paged_slot_update(cache, mask, slots, seq, cache_len):
     """The per-slot counterpart of `decode_slot_update` for decode over
     a paged pool: slot s sits at its own depth `slot_steps[s]`, and an
@@ -96,7 +136,7 @@ def paged_slot_update(cache, mask, slots, seq, cache_len):
     clamped = pos.clamp(0, cache_len - 1)
     valid = cache["slot_valid"]
     valid.scatter_(1, clamped, valid.gather(1, clamped) | m.bool())
-    cache["slot_steps"] = (idx + m.sum(dim=1)).to(torch.int32)
+    idx += m.sum(dim=1).to(torch.int32)
     key_slots = torch.arange(cache_len, device=device)
     allowed = valid[:, None, :] & (key_slots[None, None, :]
                                    <= pos[:, :, None])
@@ -182,12 +222,17 @@ def sample_one(logits, seed, temperature, top_k=None, top_p=None):
     return torch.argmax(warped + gumbel, dim=-1)
 
 
-def sample_slots(logits, seeds, temperature, top_k, top_p):
+def sample_slots(logits, seeds, temperature, top_k, top_p, greedy=None):
     """All-slot sampler over [S, V] logits: argmax for every row, then
     `sample_one` for each row whose (host) temperature is > 0. seeds,
     temperature, top_k, top_p: per-row host values (top_k/top_p None
-    or a value per row). Returns [S] int64 on the logits' device."""
-    out = torch.argmax(logits.float(), dim=-1)
+    or a value per row). greedy: the rows' argmax when the caller has
+    it (the engine's captured tick computes it in the graph); it is not
+    written to. Returns [S] int64 on the logits' device."""
+    if greedy is None:
+        out = torch.argmax(logits.float(), dim=-1)
+    else:
+        out = greedy.clone()
     for row in np.flatnonzero(np.asarray(temperature) > 0):
         out[row] = sample_one(logits[row], seeds[row], temperature[row],
                               None if top_k is None else top_k[row],
@@ -220,6 +265,40 @@ def dense_cache_layer(decoder, batch):
     return layer
 
 
+def transformer_dense_cache(decoder, batch):
+    """A zeroed dense decode cache for `batch` rows of a `TransformerLM`:
+    the K/V of every layer in one tensor `store["kv"]` [layers, 2, B, L,
+    H, D] (each layer's `cached_key` / `cached_value` are views of it),
+    and one set of bookkeeping tensors that every layer's dict shares,
+    the write pointer a 0-d int64 tensor. `store` lists the backing
+    tensors, so a cache is zeroed or copied in a few launches."""
+    (kv_shape, dtype) = _cache_shapes(decoder, batch)["cached_key"]
+    dev = decoder.device
+    kv = torch.zeros((decoder.num_layers, 2) + kv_shape, dtype=dtype,
+                     device=dev)
+    store = {"kv": kv}
+    for name, (shape, dt) in _cache_shapes(decoder, batch).items():
+        if name not in ("cached_key", "cached_value"):
+            store[name] = torch.zeros(shape, dtype=dt, device=dev)
+    store["cache_index"] = torch.zeros((), dtype=torch.int64, device=dev)
+    shared = {k: v for k, v in store.items() if k != "kv"}
+    layers = [dict(shared, kv=kv[i], cached_key=kv[i, 0],
+                   cached_value=kv[i, 1])
+              for i in range(decoder.num_layers)]
+    return {"pos_count": torch.zeros((batch,), dtype=torch.int32,
+                                     device=dev),
+            "layers": layers, "store": store}
+
+
+def copy_cache(dst, src):
+    """Copies dense decode cache `src` into `dst` (both from
+    `transformer_dense_cache` of one decoder and batch), in place."""
+    for name, value in dst["store"].items():
+        value.copy_(src["store"][name])
+    dst["pos_count"].copy_(src["pos_count"])
+    return dst
+
+
 def empty_cache(decoder, batch, **paged):
     """Zero-initialized decode cache for `batch` rows of a decoder
     (`paged` = page_size/num_pages/page_dtype for a `TransformerLM`
@@ -243,6 +322,11 @@ _CACHE_POOL_DEPTH = 2
 
 
 def _zero_in_place(cache):
+    if "store" in cache:
+        for value in cache["store"].values():
+            value.zero_()
+        cache["pos_count"].zero_()
+        return cache
     for layer in cache["layers"]:
         for name, value in layer.items():
             if isinstance(value, torch.Tensor):
@@ -255,15 +339,17 @@ def _zero_in_place(cache):
     return cache
 
 
-def acquire_cache(decoder, batch):
+def acquire_cache(decoder, batch, zero=True):
     """A zeroed dense decode cache for (decoder, batch): a parked one,
-    zeroed in place, when the pool holds one; else `empty_cache`."""
+    zeroed in place, when the pool holds one; else `empty_cache`.
+    zero=False skips the zeroing of a parked cache (the caller
+    overwrites all of it, `copy_cache`)."""
     with _CACHE_POOL_LOCK:
         parked = _CACHE_POOL.get((decoder, batch))
         cache = parked.pop() if parked else None
     if cache is None:
         return empty_cache(decoder, batch)
-    return _zero_in_place(cache)
+    return _zero_in_place(cache) if zero else cache
 
 
 def release_cache(decoder, batch, cache):
@@ -315,11 +401,13 @@ def decode_latency_finish(start, n_tokens):
 
 
 def prefill_request(model, prompt, seed, sampling):
-    """Canonical right-pad prefill of ONE request, shared by the serving
-    engine and `generate()`: the prompt's tokens at cache slots
-    [0, n), padded on the right to `bucket_length(n, max_seq_len)`
-    with invalid slots, through the dense decode cache; the first token
-    is drawn from the last real position with draw seed `seed`.
+    """Canonical right-pad prefill of ONE request (`generate()`'s; the
+    serving engine runs the same steps, `prefill_window`): the prompt's
+    tokens at cache slots [0, n), padded on the right to
+    `bucket_length(n, max_seq_len)` with invalid slots, through a dense
+    decode cache from `acquire_cache` (give it back with
+    `release_cache`); the first token is drawn from the last real
+    position's logits with draw seed `seed`.
 
     Returns (first_token 0-d device tensor, dense cache, bucket).
     """
@@ -330,12 +418,26 @@ def prefill_request(model, prompt, seed, sampling):
     tokens[0, :n] = prompt
     mask = np.zeros((1, bucket), bool)
     mask[0, :n] = True
-    cache = model.init_cache(1)
-    logits = model(torch.from_numpy(tokens).to(model.device),
-                   torch.from_numpy(mask).to(model.device), cache)
-    first = sample_one(logits[0, n - 1], seed, sampling["temperature"],
+    cache = acquire_cache(model, 1)
+    dev = model.device
+    row = prefill_window(model, cache, torch.from_numpy(tokens).to(dev),
+                         torch.from_numpy(mask).to(dev),
+                         torch.full((1,), n - 1, dtype=torch.int64,
+                                    device=dev))
+    first = sample_one(row[0], seed, sampling["temperature"],
                        sampling["top_k"], sampling["top_p"])
     return first, cache, bucket
+
+
+def prefill_window(model, cache, tokens, mask, last):
+    """One prefill window of a `TransformerLM` through dense `cache`:
+    tokens / mask [1, W] (mask marks the real tokens), appended at the
+    cache's write pointer; returns the f32 logits [1, V] of window
+    position `last` ([1] int64 device tensor) alone: the head runs on
+    that row only, by the same steps for every window width."""
+    with torch.no_grad():
+        hidden = model.decode_hidden(tokens, mask, cache)
+        return model.head(hidden.index_select(1, last))[:, 0]
 
 
 def scatter_prefill(cache, pcache, slot, page_vec, scatter_vec):
@@ -349,42 +451,44 @@ def scatter_prefill(cache, pcache, slot, page_vec, scatter_vec):
     positions are zeroed before the amax, and each written page's scale
     resets to its chunk amax / 127.
     """
-    page_vec = torch.as_tensor(page_vec, dtype=torch.int32)
-    scatter_idx = torch.as_tensor(scatter_vec, dtype=torch.long)
-    for att, patt in zip(cache["layers"], pcache["layers"]):
-        _, page, heads, head_dim = att["key_pages"].shape
-        ppn = att["page_table"].shape[1]
-        device = att["key_pages"].device
-        idx = scatter_idx.to(device)
-        chunks_k = patt["cached_key"][0].reshape(ppn, page, heads, head_dim)
-        chunks_v = patt["cached_value"][0].reshape(ppn, page, heads,
-                                                   head_dim)
-        if "key_scales" in att:
-            vm = patt["slot_valid"][0].float().reshape(ppn, page)[
-                :, :, None, None]
-            chunks_k, scale_k = _quantize_chunks(chunks_k, vm)
-            chunks_v, scale_v = _quantize_chunks(chunks_v, vm)
-            att["key_scales"][idx] = scale_k
-            att["value_scales"][idx] = scale_v
-        att["key_pages"][idx] = chunks_k.to(att["key_pages"].dtype)
-        att["value_pages"][idx] = chunks_v.to(att["value_pages"].dtype)
-        att["page_table"][slot] = page_vec.to(device)
-        att["slot_steps"][slot] = patt["token_count"][0]
-        att["slot_valid"][slot] = patt["slot_valid"][0]
+    pages = cache["pages"]                     # [layers, 2, N, P, H, D]
+    layers, _, _, page, heads, head_dim = pages.shape
+    book = cache["layers"][0]
+    ppn = book["page_table"].shape[1]
+    device = pages.device
+    idx = torch.as_tensor(scatter_vec, dtype=torch.long).to(device)
+    chunks = pcache["store"]["kv"].reshape(layers, 2, ppn, page, heads,
+                                           head_dim)
+    patt = pcache["layers"][0]
+    if "scales" in cache:
+        vm = patt["slot_valid"][0].float().reshape(ppn, page)[
+            :, :, None, None]
+        chunks, scale = _quantize_chunks(chunks, vm)
+        cache["scales"][:, :, idx] = scale
+    pages[:, :, idx] = chunks.to(pages.dtype)
+    # The slot's bookkeeping is shared by every layer (one write).
+    book["page_table"][slot] = torch.as_tensor(
+        page_vec, dtype=torch.int32).to(device)
+    book["slot_steps"][slot] = patt["token_count"][0]
+    book["slot_valid"][slot] = patt["slot_valid"][0]
     cache["pos_count"][slot] = pcache["pos_count"][0]
 
 
 def _quantize_chunks(chunks, valid):
+    """[..., ppn, P, H, D] chunks (every layer's K and V at once) to int8
+    with one scale per page and head: the amax over each page's valid
+    positions and D, / 127."""
     cf = chunks.float() * valid
-    scale = cf.abs().amax(dim=(1, 3)) / 127.0  # [ppn, H]
+    scale = cf.abs().amax(dim=(-3, -1)) / 127.0  # [..., ppn, H]
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
-    q = torch.clamp(torch.round(cf / safe[:, None, :, None]), -127, 127)
+    q = torch.clamp(torch.round(cf / safe[..., None, :, None]), -127, 127)
     return q.to(torch.int8), scale
 
 
 __all__ = ["acquire_cache", "bucket_length", "clear_cache_pool",
-           "decode_latency_finish", "decode_latency_start",
-           "decode_slot_update", "dense_cache_layer", "empty_cache",
-           "paged_slot_update", "prefill_request", "release_cache",
-           "sample_one", "sample_seeds", "sample_slots", "scatter_prefill",
+           "copy_cache", "decode_latency_finish", "decode_latency_start",
+           "decode_slot_update", "dense_cache_layer", "dense_slot_update",
+           "empty_cache", "paged_slot_update", "prefill_request",
+           "prefill_window", "release_cache", "sample_one", "sample_seeds",
+           "sample_slots", "scatter_prefill", "transformer_dense_cache",
            "validate_prompt_mask", "warp_logits"]

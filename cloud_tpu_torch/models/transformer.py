@@ -48,6 +48,7 @@ from torch import nn
 from cloud_tpu_torch.models import decoding
 from cloud_tpu_torch.models.moe import MoEMLP
 from cloud_tpu_torch.ops import attention as attention_ops
+from cloud_tpu_torch.ops import decode_block
 from cloud_tpu_torch.parallel import runtime
 
 
@@ -74,6 +75,27 @@ class _ComputeWeights:
         w = p.detach().to(self.dtype)
         self._memo[key] = (stamp, w)
         return w
+
+    def fused(self, layers):
+        """The weights and biases of `layers` (Linears of one input
+        width) concatenated along the output, in the compute dtype: one
+        product in place of several (decode, without grad). Made once
+        and reused until a parameter changes."""
+        params = [t for layer in layers for t in (layer.weight, layer.bias)]
+        key = tuple(id(t) for t in params)
+        stamp = tuple((t._version, t.data_ptr()) for t in params)
+        hit = self._memo.get(key)
+        if hit is not None and hit[0] == stamp:
+            return hit[1]
+        fused = (torch.cat([l.weight.detach() for l in layers]).to(self.dtype),
+                 torch.cat([l.bias.detach() for l in layers]).to(self.dtype))
+        self._memo[key] = (stamp, fused)
+        return fused
+
+
+#: Widest window of one example that decode attention sends to the
+#: window kernel (`CausalSelfAttention._decode_attention`).
+WINDOW_KERNEL_ROWS = 16
 
 
 def _linear(cast, layer, x):
@@ -110,116 +132,84 @@ class CausalSelfAttention(nn.Module):
         for name in ("query", "key", "value", "out"):
             setattr(self, name, nn.Linear(d_model, d_model, device=device))
 
-    def forward(self, x, mask, cache):
+    def forward(self, x, mask, cache, ctx=None):
+        """ctx: with a cache, the call's slot bookkeeping, computed once
+        for all layers by `TransformerLM.decode_hidden`."""
         batch, seq, _ = x.shape
-        shape = (batch, seq, self.num_heads, self.head_dim)
-        q = _linear(self._cast, self.query, x).view(shape)
-        k = _linear(self._cast, self.key, x).view(shape)
-        v = _linear(self._cast, self.value, x).view(shape)
         if cache is None:
             # Training / scoring: causal attention over the sequence, the
             # key mask (optional [B, S]) excluding padded keys.
+            shape = (batch, seq, self.num_heads, self.head_dim)
+            q = _linear(self._cast, self.query, x).view(shape)
+            k = _linear(self._cast, self.key, x).view(shape)
+            v = _linear(self._cast, self.value, x).view(shape)
             out = attention_ops.attention(q, k, v, causal=True, mask=mask)
-        elif "key_pages" in cache:
-            out = self._paged_decode_attention(q, k, v, mask, cache)
         else:
-            out = self._decode_attention(q, k, v, mask, cache)
+            # Decode: q, k and v from one product; k and v as one [2, B,
+            # S, H, D] view, written to the cache in one index write.
+            w, b = self._cast.fused((self.query, self.key, self.value))
+            qkv = F.linear(x.to(self._cast.dtype), w, b).view(
+                batch, seq, 3, self.num_heads, self.head_dim)
+            q, kv = qkv[:, :, 0], qkv[:, :, 1:].permute(2, 0, 1, 3, 4)
+            if "key_pages" in cache:
+                out = self._paged_decode_attention(q, kv, mask, cache, ctx)
+            else:
+                out = self._decode_attention(q, kv, cache, ctx)
         out = out.to(self._cast.dtype).reshape(batch, seq, -1)
         return _linear(self._cast, self.out, out)
 
-    def _decode_attention(self, q, k, v, mask, cache):
-        """Dense KV-cache attention: append this call's K/V at the write
-        pointer, then attend q against everything cached so far (f32
-        logits and softmax, weights cast to the compute dtype)."""
+    def _decode_attention(self, q, kv, cache, ctx):
+        """Dense KV-cache attention: write this call's K/V at its slots,
+        then attend q against everything cached so far, as JAX's
+        `_decode_attention` (`ops.decode_block.dense_decode_attention`;
+        `ctx`: the slots of `decoding.dense_slot_update` and its mask as
+        an additive bias, 0 or -1e30, which gives the same logits). A
+        window of one example of at most `WINDOW_KERNEL_ROWS` queries (a
+        prefix hit's suffix, a chunk, a short prompt) at a head dim the
+        kernel is built for takes `decode_block.window_attention`, the
+        CUDA kernel on the card; wider windows are products that cuBLAS
+        runs on tensor cores."""
+        slots, bias = ctx
         batch, seq = q.shape[:2]
-        cache_len = cache["cached_key"].shape[1]
-        idx, _, allowed = decoding.decode_slot_update(cache, mask, batch,
-                                                      seq, cache_len)
-        dtype = self._cast.dtype
-        cache["cached_key"][:, idx:idx + seq] = k.to(dtype)
-        cache["cached_value"][:, idx:idx + seq] = v.to(dtype)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                              cache["cached_key"].float())
-        logits = logits * (1.0 / math.sqrt(self.head_dim))
-        logits = torch.where(allowed[:, None], logits,
-                             torch.full((), -1e30, device=logits.device))
-        weights = torch.softmax(logits, dim=-1).to(dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", weights.float(),
-                           cache["cached_value"].float())
-        return out.to(dtype)
+        cached = cache["kv"]                      # [2, B, L, H, D]
+        cached.index_copy_(2, slots, kv.to(cached.dtype))
+        scale = 1.0 / math.sqrt(self.head_dim)
+        if (batch == 1 and seq <= WINDOW_KERNEL_ROWS
+                and self.head_dim in decode_block.WINDOW_HEAD_DIMS):
+            return decode_block.window_attention(
+                q[0], cached[0, 0], cached[1, 0], bias[0, 0], scale)[None]
+        return decode_block.dense_decode_attention(q, cached[0], cached[1],
+                                                   bias, scale)
 
-    def _paged_decode_attention(self, q, k, v, mask, cache):
+    def _paged_decode_attention(self, q, kv, mask, cache, ctx):
         """Decode over the paged pool: the batch dimension is SLOTS, each
-        at its own depth. Token j of slot s is written at physical page
-        page_table[s, pos // P], offset pos % P (inactive slots resolve
-        to scratch page 0 through their zeroed table row), then
-        `ops.paged_attention` attends each slot's logical view."""
+        at its own depth (`ctx`: the mask of `decoding.paged_slot_update`
+        and each token's physical page and offset). Token j of slot s is
+        written at physical page page_table[s, pos // P], offset pos % P
+        (inactive slots resolve to scratch page 0 through their zeroed
+        table row), then `ops.paged_attention` attends each slot's
+        logical view."""
         from cloud_tpu_torch.ops.paged_attention import paged_attention
 
         slots, seq = q.shape[:2]
-        key_pages = cache["key_pages"]
-        value_pages = cache["value_pages"]
-        page_size = key_pages.shape[1]
-        cache_len = cache["slot_valid"].shape[1]
-        pos, allowed = decoding.paged_slot_update(cache, mask, slots, seq,
-                                                  cache_len)
-        table = cache["page_table"]
-        page_idx = (pos // page_size).clamp(max=table.shape[1] - 1)
-        phys = table.gather(1, page_idx).long()
-        off = pos % page_size
+        pages = cache["pages"]                    # [2, N, P, H, D]
+        allowed, phys, off = ctx
         scales = {}
-        if "key_scales" in cache:
-            if mask is not None:
-                # Invalid tokens are zeroed before quantizing so they
-                # never inflate a real page's scale.
-                m = mask.reshape(slots, seq).to(k.dtype)[:, :, None, None]
-                k = k * m
-                v = v * m
-            _quantized_page_write(key_pages, cache["key_scales"], k, phys,
-                                  off)
-            _quantized_page_write(value_pages, cache["value_scales"], v,
-                                  phys, off)
+        if "scales" in cache:
+            # Dead tokens are zeroed before quantizing so they never
+            # inflate a real page's scale.
+            decode_block.int8_page_write(
+                pages, cache["scales"], kv, phys, off,
+                None if mask is None else mask.reshape(slots, seq).bool())
             scales = dict(key_scales=cache["key_scales"],
                           value_scales=cache["value_scales"])
         else:
-            key_pages[phys, off] = k.to(key_pages.dtype)
-            value_pages[phys, off] = v.to(value_pages.dtype)
-        return paged_attention(q.contiguous(), key_pages, value_pages,
-                               table, allowed,
+            pages[:, phys, off] = kv.to(pages.dtype)
+        return paged_attention(q.contiguous(), cache["key_pages"],
+                               cache["value_pages"], cache["page_table"],
+                               allowed,
                                sm_scale=1.0 / math.sqrt(self.head_dim),
                                **scales)
-
-
-def _quantized_page_write(pages, scales, x, phys, off):
-    """Writes [slots, seq, H, D] decode K/V into int8 pages with a
-    per-page per-head amax rescale, in place.
-
-    pages: [N, P, H, D] int8; scales: [N, H] f32; phys/off: [slots,
-    seq] physical page / in-page offset of each token. Per position j
-    the page's scale grows to cover the token (`new = max(old, amax /
-    127)`), the page's existing block is rescaled by `old / new` (an
-    exact no-op when the scale does not grow) and the token quantized
-    at `new`. Returns (pages, scales).
-    """
-    slots, seq = x.shape[:2]
-    xf = x.float()
-    rows = torch.arange(slots, device=x.device)
-    for j in range(seq):
-        p = phys[:, j]
-        o = off[:, j]
-        xj = xf[:, j]                           # [slots, H, D]
-        amax = xj.abs().amax(dim=-1)            # [slots, H]
-        old = scales[p]
-        new = torch.maximum(old, amax / 127.0)
-        safe = torch.where(new > 0, new, torch.ones_like(new))
-        factor = (old / safe)[:, None, :, None]
-        block = torch.clamp(torch.round(pages[p].float() * factor),
-                            -127, 127)
-        block[rows, o] = torch.clamp(torch.round(xj / safe[:, :, None]),
-                                     -127, 127)
-        pages[p] = block.to(torch.int8)
-        scales[p] = new
-    return pages, scales
 
 
 #: Why an MoE TransformerLM is not served (generate(), DecodeEngine).
@@ -258,13 +248,16 @@ class TransformerBlock(nn.Module):
             self.mlp_in = nn.Linear(d_model, d_ff, device=device)
             self.mlp_out = nn.Linear(d_ff, d_model, device=device)
 
-    def forward(self, x, mask, cache, generator=None, losses=None):
+    def forward(self, x, mask, cache, generator=None, losses=None,
+                ctx=None):
         """generator: a `torch.Generator` on x's device when dropout is
         on for this call (None = deterministic). losses: a list the
-        MoE's aux loss is appended to (None: not collected)."""
+        MoE's aux loss is appended to (None: not collected). ctx: the
+        decode call's slot bookkeeping (`CausalSelfAttention.forward`)."""
         cast = self._cast
         drop = self.dropout_rate > 0 and generator is not None
-        y = self.attention(_layer_norm(cast, self.ln_attn, x), mask, cache)
+        y = self.attention(_layer_norm(cast, self.ln_attn, x), mask, cache,
+                           ctx)
         if drop:
             y = _dropout(y, self.dropout_rate, generator)
         x = x + y
@@ -279,6 +272,26 @@ class TransformerBlock(nn.Module):
         if drop:
             y = _dropout(y, self.dropout_rate, generator)
         return x + y
+
+    def decode(self, x, pending, mask, cache, ctx):
+        """The block in decode: returns (h, y) where h + y is the block's
+        output. `pending` (the previous block's y, or None) is added to
+        the f32 residual stream x by the same call that takes the first
+        LayerNorm, and this block's own attention output likewise by the
+        second (`decode_block.add_layer_norm`, a kernel on the card), so
+        each residual add costs no launch of its own."""
+        cast = self._cast
+        ln = self.ln_attn
+        normed, x = decode_block.add_layer_norm(x, pending, ln.weight,
+                                                ln.bias, ln.eps, cast.dtype)
+        y = self.attention(normed, mask, cache, ctx)
+        ln = self.ln_mlp
+        normed, x = decode_block.add_layer_norm(x, y, ln.weight, ln.bias,
+                                                ln.eps, cast.dtype)
+        if hasattr(self, "moe"):
+            return x, self.moe(normed)[0]
+        y = _linear(cast, self.mlp_in, normed)
+        return x, _linear(cast, self.mlp_out, F.gelu(y, approximate="tanh"))
 
 
 class TransformerLM(nn.Module):
@@ -347,49 +360,61 @@ class TransformerLM(nn.Module):
             p.copy_(value)
 
     def init_cache(self, batch, page_size=0, num_pages=0, page_dtype=""):
-        """A zeroed decode cache for `batch` rows: dense per example, or
-        (page_size > 0) a page pool of `num_pages` pages (page 0 is the
-        scratch page) with `batch` slots, pages in the compute dtype or
-        int8 with [num_pages, H] f32 scales."""
+        """A zeroed decode cache for `batch` rows: dense per example
+        (`decoding.transformer_dense_cache`), or (page_size > 0) a page
+        pool of `num_pages` pages (page 0 is the scratch page) with
+        `batch` slots, pages in the compute dtype or int8 with
+        [num_pages, H] f32 scales. Every layer has its own pages; the
+        page table, the slots' pointers and validity are one set of
+        tensors that every layer's dict shares (each decode call moves
+        them once)."""
+        if not page_size:
+            return decoding.transformer_dense_cache(self, batch)
         dev = self.device
         heads, head_dim, L = self.num_heads, self.head_dim, self.max_seq_len
+        if L % page_size:
+            raise ValueError(
+                "cache_len ({}) must be a positive multiple of "
+                "page_size ({}).".format(L, page_size))
+        if num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is the "
+                             "scratch page).")
+        if page_dtype not in ("", "int8"):
+            raise ValueError(
+                "page_dtype must be '' or 'int8'; got {!r}.".format(
+                    page_dtype))
+        store = torch.int8 if page_dtype == "int8" else self.compute_dtype
+        shape = (num_pages, page_size, heads, head_dim)
+        shared = {
+            "page_table": torch.zeros((batch, L // page_size),
+                                      dtype=torch.int32, device=dev),
+            "slot_steps": torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev),
+            "slot_valid": torch.zeros((batch, L), dtype=torch.bool,
+                                      device=dev),
+        }
+        # Every layer's K and V pages in one tensor (and the int8
+        # scales in another), so that a prefix gather or a request's
+        # scatter moves all of them in one indexing operation.
+        cache = {"pos_count": torch.zeros((batch,), dtype=torch.int32,
+                                          device=dev),
+                 "pages": torch.zeros((self.num_layers, 2) + shape,
+                                      dtype=store, device=dev)}
+        if page_dtype == "int8":
+            cache["scales"] = torch.zeros(
+                (self.num_layers, 2, num_pages, heads), device=dev)
         layers = []
-        for _ in range(self.num_layers):
-            if not page_size:
-                layers.append(decoding.dense_cache_layer(self, batch))
-                continue
-            if L % page_size:
-                raise ValueError(
-                    "cache_len ({}) must be a positive multiple of "
-                    "page_size ({}).".format(L, page_size))
-            if num_pages < 2:
-                raise ValueError("num_pages must be >= 2 (page 0 is the "
-                                 "scratch page).")
-            if page_dtype not in ("", "int8"):
-                raise ValueError(
-                    "page_dtype must be '' or 'int8'; got {!r}.".format(
-                        page_dtype))
-            store = torch.int8 if page_dtype == "int8" else self.compute_dtype
-            shape = (num_pages, page_size, heads, head_dim)
-            att = {
-                "key_pages": torch.zeros(shape, dtype=store, device=dev),
-                "value_pages": torch.zeros(shape, dtype=store, device=dev),
-                "page_table": torch.zeros((batch, L // page_size),
-                                          dtype=torch.int32, device=dev),
-                "slot_steps": torch.zeros((batch,), dtype=torch.int32,
-                                          device=dev),
-                "slot_valid": torch.zeros((batch, L), dtype=torch.bool,
-                                          device=dev),
-            }
+        for i in range(self.num_layers):
+            att = dict(shared, pages=cache["pages"][i],
+                       key_pages=cache["pages"][i, 0],
+                       value_pages=cache["pages"][i, 1])
             if page_dtype == "int8":
-                att["key_scales"] = torch.zeros((num_pages, heads),
-                                                device=dev)
-                att["value_scales"] = torch.zeros((num_pages, heads),
-                                                  device=dev)
+                att.update(scales=cache["scales"][i],
+                           key_scales=cache["scales"][i, 0],
+                           value_scales=cache["scales"][i, 1])
             layers.append(att)
-        return {"pos_count": torch.zeros((batch,), dtype=torch.int32,
-                                         device=dev),
-                "layers": layers}
+        cache["layers"] = layers
+        return cache
 
     def forward(self, tokens, mask=None, cache=None, deterministic=True,
                 generator=None):
@@ -421,10 +446,40 @@ class TransformerLM(nn.Module):
         for block in self.blocks:
             x = block(x, mask, None, generator=gen, losses=losses)
         self.aux_losses = losses or []
-        return self._head(x)
+        return self.head(x)
 
     def _decode(self, tokens, mask, cache):
+        return self.head(self.decode_hidden(tokens, mask, cache))
+
+    def decode_hidden(self, tokens, mask, cache):
+        """The decode forward up to the final norm: appends to `cache`
+        (from `init_cache`) in place and returns the f32 residual stream
+        [B, S, d_model] (`head` turns it into logits). The slot
+        bookkeeping, which every layer's dict shares, moves once for the
+        call."""
         batch, seq = tokens.shape
+        layers = cache["layers"]
+        first = layers[0]
+        for layer in layers[1:]:
+            if layer["slot_valid"] is not first["slot_valid"]:
+                raise ValueError(
+                    "the decode cache's layers must share one set of "
+                    "bookkeeping tensors (make it with init_cache).")
+        if "key_pages" in first:
+            pos, allowed = decoding.paged_slot_update(
+                first, mask, batch, seq, first["slot_valid"].shape[1])
+            # Where each token's K/V go: physical page and offset, the
+            # same for every layer.
+            page_size = first["key_pages"].shape[1]
+            table = first["page_table"]
+            page_idx = (pos // page_size).clamp(max=table.shape[1] - 1)
+            ctx = (allowed, table.gather(1, page_idx).long(),
+                   pos % page_size)
+        else:
+            slots, allowed = decoding.dense_slot_update(first, mask, batch,
+                                                        seq)
+            # The mask as an additive bias of the logits, for all layers.
+            ctx = (slots, torch.where(allowed, 0.0, -1e30)[:, None])
         # The residual stream stays in f32 (the JAX model keeps it in the
         # compute dtype): rounding it at each of 2 x layers additions is
         # the largest error a bf16 decode adds to the logits.
@@ -434,11 +489,14 @@ class TransformerLM(nn.Module):
         positions = cache["pos_count"][:, None] + torch.cumsum(m, 1) - m
         cache["pos_count"] += m.sum(dim=1).to(torch.int32)
         x = x + self.pos_embed.weight[positions]
-        for block, layer_cache in zip(self.blocks, cache["layers"]):
-            x = block(x, mask, layer_cache)
-        return self._head(x)
+        y = None
+        for block, layer_cache in zip(self.blocks, layers):
+            x, y = block.decode(x, y, mask, layer_cache, ctx)
+        return x + y
 
-    def _head(self, x):
+    def head(self, x):
+        """f32 logits [..., V] of the residual stream: the final norm
+        and the output head, in f32."""
         # The final norm and the output head run in f32: the logits
         # feed an argmax or a draw over the whole vocabulary, and bf16
         # logits (steps of 1/128 near |2|) tie often over 50257 tokens.
@@ -614,6 +672,7 @@ def _generate_paged(model, prompt, real, max_new_tokens, seeds, sampling,
         vec = 1 + row * pages_per_slot + np.arange(pages_per_slot)
         decoding.scatter_prefill(cache, dense, row, vec, vec)
         cur[row] = first
+        decoding.release_cache(model, 1, dense)
     active = torch.zeros((slots, 1), dtype=torch.bool, device=dev)
     active[:batch] = True
     done = torch.zeros((slots,), dtype=torch.bool, device=dev)

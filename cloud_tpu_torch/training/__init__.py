@@ -20,21 +20,28 @@ from cloud_tpu_torch.training.data import (ArrayDataset,
                                            DeviceResidentDataset,
                                            GeneratorDataset, InputCast,
                                            NpzShardDataset, ThreadedDataset,
-                                           as_dataset, make_input_cast,
+                                           as_dataset, epoch_permutation,
+                                           make_input_cast,
                                            prefetch_to_device)
 from cloud_tpu_torch.training.resilience import (AutoCheckpoint,
-                                                 resilient_fit)
-from cloud_tpu_torch.training.trainer import (LOSSES, METRICS, OPTIMIZERS,
-                                              Trainer, make_optimizer)
+                                                 CheckpointCorrupt,
+                                                 DataStall, NaNLoss,
+                                                 Preemption, TrainingFault,
+                                                 guard_stats, resilient_fit)
+from cloud_tpu_torch.training.trainer import (
+    LOSSES, METRICS, OPTIMIZERS, Trainer, TrainState, make_optimizer,
+    sparse_categorical_crossentropy)
 
 __all__ = ["ArrayDataset", "AsyncMetricReader", "AutoCheckpoint",
-           "Callback", "DeviceResidentDataset", "EarlyStopping",
-           "GeneratorDataset", "InputCast", "LOSSES", "LambdaCallback",
-           "LazyLogs", "METRICS", "MetricFuture", "MetricsLogger",
-           "ModelCheckpoint", "NpzShardDataset", "OPTIMIZERS",
+           "Callback", "CheckpointCorrupt", "DataStall",
+           "DeviceResidentDataset", "EarlyStopping", "GeneratorDataset",
+           "InputCast", "LOSSES", "LambdaCallback", "LazyLogs", "METRICS",
+           "MetricFuture", "MetricsLogger", "ModelCheckpoint", "NaNLoss",
+           "NpzShardDataset", "OPTIMIZERS", "Preemption",
            "PreemptionCheckpoint", "TensorBoard", "TerminateOnNaN",
-           "ThreadedDataset", "Trainer", "as_dataset", "async_logs",
-           "callbacks", "checkpoint", "data", "make_input_cast",
+           "ThreadedDataset", "TrainState", "Trainer", "TrainingFault",
+           "as_dataset", "async_logs", "callbacks", "checkpoint", "data",
+           "epoch_permutation", "guard_stats", "make_input_cast",
            "make_optimizer", "optimizers", "prefetch_to_device",
            "read_metrics_log", "resilience", "resilient_fit",
-           "schedules"]
+           "schedules", "sparse_categorical_crossentropy"]

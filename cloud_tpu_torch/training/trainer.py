@@ -517,8 +517,8 @@ class Trainer:
                  loss="sparse_categorical_crossentropy",
                  metrics=("accuracy",), mesh=None,
                  param_sharding_rules=None, train_kwargs=None,
-                 eval_kwargs=None, seed=0, aux_loss_weight=0.01,
-                 gradient_accumulation_steps=1,
+                 eval_kwargs=None, rng_keys=(), seed=0,
+                 aux_loss_weight=0.01, gradient_accumulation_steps=1,
                  remat=False, zero1=False, fsdp=False, ema_decay=None,
                  steps_per_execution=1, trainable=None):
         """Constructor.
@@ -538,6 +538,11 @@ class Trainer:
                 per-example values (or a scalar).
             train_kwargs / eval_kwargs: extra forward kwargs for training
                 (e.g. {"deterministic": False}) / evaluation.
+            rng_keys: the names of the per-step rng streams JAX's
+                Trainer splits for flax's apply (e.g. ("dropout",)),
+                kept for its signature: here one generator per step,
+                seeded from `seed` and the step, draws all of a
+                forward's randomness, whatever the names.
             seed: the shuffle seed and the dropout generator's seed.
             aux_loss_weight: weight of the aux losses a training forward
                 leaves in the model's `aux_losses` (the MoE blocks' load
@@ -608,6 +613,7 @@ class Trainer:
                 self.metric_fns[getattr(m, "__name__", "metric")] = m
         self.train_kwargs = dict(train_kwargs or {})
         self.eval_kwargs = dict(eval_kwargs or {})
+        self.rng_keys = tuple(rng_keys)
         self.seed = seed
         self.aux_loss_weight = aux_loss_weight
         self.state = None
@@ -1027,7 +1033,7 @@ class Trainer:
             resume_from=None, prefetch=2, sample_weight=None,
             class_weight=None, cache=None, input_cast=None,
             async_logging=True, warm_start=False, resume=None,
-            retries=None):
+            retries=None, on_retrace=None):
         """Trains the model; returns a history dict of per-epoch logs
         (the epoch means of loss and metrics, steps_per_sec, and val_*
         from `validation_data` / `validation_split`).
@@ -1080,7 +1086,19 @@ class Trainer:
             shapes, the steps_per_execution graph's capture) by a warm
             step whose effects on the state are undone: step 1 moves
             none of `_build.build_count()` and `graph_captures()`.
+        on_retrace: JAX's retrace-sentinel policy, "warn" (the default,
+            also CLOUD_TPU_ON_RETRACE), "raise" or "ignore", checked as
+            JAX checks it. Nothing is traced here (eager steps; the
+            steps_per_execution graph is captured once per geometry,
+            before its first step), so the policy has nothing to act on.
         """
+        on_retrace = (on_retrace or os.environ.get("CLOUD_TPU_ON_RETRACE")
+                      or "warn")
+        if on_retrace not in ("warn", "raise", "ignore"):
+            raise ValueError(
+                "on_retrace must be 'warn', 'raise' or 'ignore'; got "
+                "{!r}.".format(on_retrace))
+        self._on_retrace = on_retrace
         kwargs = dict(
             x=x, y=y, epochs=epochs, batch_size=batch_size, shuffle=shuffle,
             validation_data=validation_data,
@@ -1676,49 +1694,93 @@ class Trainer:
                     p.copy_(live[n])
 
     def evaluate(self, x, y=None, batch_size=32, verbose=True, steps=None,
-                 sample_weight=None, use_ema=False):
-        """Exact example-weighted mean loss/metrics over the dataset: the
-        tail batch is padded by wrapping and the padded rows masked out
-        (times any `sample_weight`), each batch weighted by its real
-        weight. Totals stay on the device; one fetch at the end.
+                 prefetch=2, use_ema=False, sample_weight=None):
+        """Exact example-weighted mean loss/metrics over the dataset, as
+        JAX's `masked_batches`: an `ArrayDataset` (raw arrays become
+        one) pads its tail batch by wrapping, and the padded rows are
+        masked out (times any `sample_weight`), each batch weighted by
+        its real rows, the dataset's own batch size and example count
+        deciding which rows are real; any other iterable's batches are
+        taken as they come (a 3-tuple is (x, y, weights), a 2-tuple
+        (x, y), anything else unlabelled input). `steps` caps the batch
+        loop (default: the dataset's `steps_per_epoch`). Batches reach
+        the device through `data.prefetch_to_device`, `prefetch` ahead
+        (0: synchronously). Totals stay on the device; one fetch at the
+        end. sample_weight: per-example weights of array inputs.
         use_ema: evaluate the EMA shadow (needs `ema_decay=`)."""
         self._require_built()
         with self._weights(use_ema):
             return self._evaluate(x, y, batch_size, verbose, steps,
-                                  sample_weight)
+                                  prefetch, sample_weight)
+
+    def _eval_batches(self, dataset, steps):
+        """(aggregation weight, padded, (x, y, mask)) per host batch of
+        `dataset`: the mask marks the batch's real rows, times its
+        per-example weights; the aggregation weight is the batch's share
+        of the final mean (real rows, or the mask's sum when
+        weighted)."""
+        num_examples = getattr(dataset, "num_examples", None)
+        global_bs = getattr(dataset, "batch_size", None)
+        for i, batch in enumerate(self._epoch_batches(dataset, 0)):
+            if steps is not None and i >= steps:
+                break
+            wb = None
+            if isinstance(batch, (tuple, list)) and len(batch) == 3:
+                xb, yb, wb = batch
+            elif isinstance(batch, (tuple, list)) and len(batch) == 2:
+                xb, yb = batch
+            else:
+                xb, yb = batch, None
+            local_b = np.shape(_first_leaf(xb))[0]
+            if num_examples is not None and global_bs is not None:
+                # The wrapped tail: only the first `real` rows are new.
+                real = min(global_bs, num_examples - i * global_bs)
+            else:
+                real = local_b
+            mask = (np.arange(local_b) < real).astype(np.float32)
+            padded = real < local_b
+            if wb is not None:
+                mask = mask * np.asarray(wb, np.float32)
+                agg = float(mask.sum())
+            else:
+                agg = float(real)
+            yield agg, padded, (xb, yb, mask)
 
     @torch.no_grad()
-    def _evaluate(self, x, y, batch_size, verbose, steps, sample_weight):
+    def _evaluate(self, x, y, batch_size, verbose, steps, prefetch,
+                  sample_weight):
+        if sample_weight is not None and not (
+                hasattr(x, "shape") or isinstance(x, (dict, list, tuple))):
+            raise ValueError(
+                "sample_weight= needs raw array inputs; pre-built "
+                "datasets carry their own weights via "
+                "ArrayDataset(sample_weight=...).")
         ds_kwargs = {}
         if sample_weight is not None:
             ds_kwargs["sample_weight"] = sample_weight
         dataset = data_lib.as_dataset(x, y, batch_size=batch_size,
                                       drop_remainder=False, **ds_kwargs)
-        weighted = dataset.sample_weight is not None
+        if (sample_weight is not None
+                and not isinstance(dataset, data_lib.ArrayDataset)):
+            raise ValueError(
+                "sample_weight= needs array inputs (wrap the dataset in "
+                "ArrayDataset(sample_weight=...) instead).")
+        weighted = (isinstance(dataset, data_lib.ArrayDataset)
+                    and dataset.sample_weight is not None)
         if steps is None:
-            steps = dataset.steps_per_epoch
+            steps = getattr(dataset, "steps_per_epoch", None)
         self.model.eval()
+        feeder = data_lib.prefetch_to_device(
+            self._eval_batches(dataset, steps), size=prefetch,
+            feed=lambda item: (item[0], item[1], self._to_device(item[2])))
         totals, weight = {}, 0.0
-        for i, batch in enumerate(dataset):
-            if i >= steps:
-                break
-            if weighted:
-                xb, yb, wb = batch
-            else:
-                (xb, yb), wb = batch, None
-            real = min(batch_size, dataset.num_examples - i * batch_size)
-            mask = (np.arange(batch_size) < real).astype(np.float32)
-            padded = real < batch_size
-            if wb is not None:
-                mask = mask * np.asarray(wb, np.float32)
-            xb, yb, mask_t = self._to_device((xb, yb, mask))
+        for agg, padded, (xb, yb, mask_t) in feeder:
             outputs = self.model(xb, **self.eval_kwargs)
             per_ex = _per_example_view(self.loss_fn(outputs, yb),
                                        mask_t.shape[0])
             logs = {"loss": _weighted_mean(per_ex, mask_t)}
             logs.update(self._metric_logs(outputs, yb, mask_t,
                                           padded or weighted))
-            agg = mask_t.sum() if weighted else float(real)
             weight = weight + agg
             for k, v in logs.items():
                 totals[k] = totals.get(k, 0.0) + v * agg
@@ -1736,23 +1798,33 @@ class Trainer:
                         {k: round(v, 4) for k, v in logs.items()})
         return logs
 
-    def predict(self, x, batch_size=32, use_ema=False):
+    def predict(self, x, batch_size=32, prefetch=2, use_ema=False):
         """Stacked model outputs for `x` as numpy (the model's output
-        structure kept), batch by batch, the padded tail cut off.
-        use_ema: predict with the EMA shadow (needs `ema_decay=`)."""
+        structure kept), the padded tail cut off. Batches reach the
+        device through `data.prefetch_to_device`, `prefetch` ahead, and
+        each batch's output is fetched while the next one computes (one
+        behind, as JAX's). use_ema: predict with the EMA shadow (needs
+        `ema_decay=`)."""
         self._require_built()
         with self._weights(use_ema):
-            return self._predict(x, batch_size)
+            return self._predict(x, batch_size, prefetch)
 
     @torch.no_grad()
-    def _predict(self, x, batch_size):
+    def _predict(self, x, batch_size, prefetch):
         dataset = data_lib.as_dataset(x, None, batch_size=batch_size,
                                       drop_remainder=False)
         self.model.eval()
+        feeder = data_lib.prefetch_to_device(iter(dataset), size=prefetch,
+                                             feed=self._to_device)
         outs = []
-        for xb in dataset:
-            outs.append(runtime.device_fetch(
-                self.model(self._to_device(xb), **self.eval_kwargs)))
+        pending = None
+        for xb in feeder:
+            out = self.model(xb, **self.eval_kwargs)
+            if pending is not None:
+                outs.append(runtime.device_fetch(pending))
+            pending = out
+        if pending is not None:
+            outs.append(runtime.device_fetch(pending))
         n = dataset.num_examples
 
         def join(*leaves):

@@ -399,3 +399,110 @@ def test_as_dataset_resolution():
     batches = _batches(x, y, 8)
     assert tdata.as_dataset(batches) is batches
     assert tdata.as_dataset(iter(batches)) == batches
+
+
+# -- evaluate / predict over datasets (JAX's masked_batches) ---------------
+
+@pytest.fixture(scope="module")
+def eval_pair():
+    """A JAX MLP(hidden=16) Trainer and the port's with its parameters,
+    and 100 examples."""
+    x, y = _xy(100, seed=5)
+    jt = jtrainer.Trainer(jmnist.MLP(hidden=16, num_classes=4,
+                                     compute_dtype=jnp.float32),
+                          optimizer=optax.sgd(0.1), seed=0)
+    jt.build(x)
+    tt = _trainer()
+    tt.build(x, variables=convert.image_params_from_flax(
+        {"params": jt.state.params}))
+    return jt, tt, x, y
+
+
+def _eval_inputs(x, y, jax_side):
+    """Each input kind of `evaluate`, built from one module's classes:
+    an ArrayDataset whose batch size (25) is not the call's (32), a
+    list of (x, y) batches with a short tail, one of (x, y, w) batches,
+    a GeneratorDataset and a ThreadedDataset over it."""
+    data = jdata if jax_side else tdata
+    batches = [(x[i:i + 30], y[i:i + 30]) for i in range(0, 100, 30)]
+    w = np.linspace(0.0, 2.0, 100).astype(np.float32)
+    weighted = [(x[i:i + 30], y[i:i + 30], w[i:i + 30])
+                for i in range(0, 100, 30)]
+    gen = data.GeneratorDataset(lambda: iter(batches))
+    return {
+        "array_dataset": data.ArrayDataset(x, y, batch_size=25,
+                                           drop_remainder=False),
+        "batch_list": batches,
+        "weighted_list": weighted,
+        "generator": gen,
+        "threaded": (jdata.ThreadedDataset(gen, buffer_size=2) if jax_side
+                     else tdata.ThreadedDataset(gen, buffer_size=2)),
+    }
+
+
+@pytest.mark.parametrize("kind", ["array_dataset", "batch_list",
+                                  "weighted_list", "generator",
+                                  "threaded"])
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_evaluate_takes_datasets_as_jax_does(eval_pair, kind, prefetch):
+    """`evaluate` over each input kind gives JAX's logs (1e-5: f32
+    summation orders); batches come through `prefetch_to_device`."""
+    jt, tt, x, y = eval_pair
+    want = jt.evaluate(_eval_inputs(x, y, True)[kind], batch_size=32,
+                       verbose=False)
+    runtime.reset_transfer_stats()
+    got = tt.evaluate(_eval_inputs(x, y, False)[kind], batch_size=32,
+                      verbose=False, prefetch=prefetch)
+    assert runtime.transfer_stats()["h2d_transfers"] > 0
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+def test_evaluate_sample_weight_needs_arrays(eval_pair):
+    jt, tt, x, y = eval_pair
+    w = np.ones(100, np.float32)
+    batches = _eval_inputs(x, y, False)["batch_list"]
+    for trainer, data in ((jt, batches), (tt, batches),
+                          (tt, tdata.GeneratorDataset(lambda: iter(
+                              batches)))):
+        with pytest.raises(ValueError, match="sample_weight"):
+            trainer.evaluate(data, sample_weight=w, verbose=False)
+    want = jt.evaluate(x, y, batch_size=32, sample_weight=w * 2,
+                       verbose=False)
+    got = tt.evaluate(x, y, batch_size=32, sample_weight=w * 2,
+                      verbose=False)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("prefetch", [0, 1, 3])
+def test_predict_prefetches_one_behind_as_jax(eval_pair, prefetch):
+    """`predict(prefetch=)` feeds through `prefetch_to_device`, fetches
+    each output one batch behind (one d2h fetch a batch) and gives
+    JAX's outputs."""
+    jt, tt, x, _ = eval_pair
+    want = np.asarray(jt.predict(x, batch_size=32))
+    runtime.reset_transfer_stats()
+    got = tt.predict(x, batch_size=32, prefetch=prefetch)
+    stats = runtime.transfer_stats()
+    assert stats["d2h_fetches"] == 4 and stats["h2d_transfers"] == 4
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_rng_keys_and_on_retrace_are_taken_and_checked():
+    """JAX's `Trainer(rng_keys=)` and `fit(on_retrace=)`: the names are
+    kept, the policy is checked as JAX checks it (ROADMAP §3: the step
+    generator draws the dropout, and nothing is traced)."""
+    x, y = _xy(16)
+    tt = _trainer(rng_keys=("dropout",))
+    assert tt.rng_keys == ("dropout",)
+    for policy in ("warn", "raise", "ignore", None):
+        tt.fit(x, y, batch_size=8, verbose=False, on_retrace=policy)
+    with pytest.raises(ValueError, match="on_retrace"):
+        tt.fit(x, y, batch_size=8, verbose=False, on_retrace="loud")
+    jt = jtrainer.Trainer(jmnist.MLP(hidden=16, num_classes=4,
+                                     compute_dtype=jnp.float32),
+                          optimizer=optax.sgd(0.1), seed=0)
+    with pytest.raises(ValueError, match="on_retrace"):
+        jt.fit(x, y, batch_size=8, verbose=False, on_retrace="loud")

@@ -1208,3 +1208,249 @@ def test_resident_gather_order_on_the_card():
                 res.policy.widen(gx).cpu().numpy(),
                 res.policy.widen(res.policy.host_cast(xb)).numpy())
             np.testing.assert_array_equal(gy.cpu().numpy(), yb)
+
+
+# -- serving's fixed-shape path: the tick and the prefills as CUDA graphs --
+
+_SERVE_CFG = dict(vocab_size=256, num_layers=2, num_heads=4, d_model=64,
+                  d_ff=128, max_seq_len=128)
+_GREEDY = dict(temperature=0.0, top_k=None, top_p=None, eos_token=None)
+
+
+def _serve_model(dev):
+    from cloud_tpu_torch.models import TransformerLM
+
+    return TransformerLM(compute_dtype=torch.bfloat16, device=dev, seed=3,
+                         **_SERVE_CFG)
+
+
+def _engine_pair(model, kv_dtype, slots=4, page=16):
+    from cloud_tpu_torch.serving.engine import DecodeEngine
+
+    pps = model.max_seq_len // page
+    return [DecodeEngine(model, slots, page, slots * pps + 1,
+                         page_dtype=kv_dtype, graphs=graphs)
+            for graphs in (None, False)]
+
+
+def _same_prefill(a, b):
+    return a.first_token == b.first_token and all(
+        torch.equal(a.pcache["store"][k], b.pcache["store"][k])
+        for k in a.pcache["store"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["", "int8"], ids=["bf16", "int8"])
+def test_replayed_tick_equals_eager_tick(kv_dtype):
+    """30 ticks of an engine replaying its tick graph against an eager
+    engine on the same model, requests entering and leaving between
+    ticks: tokens and [S, V] logits bit for bit; the replays count
+    layers x ticks launches of the paged kernel."""
+    dev = _card()
+    model = _serve_model(dev)
+    engines = _engine_pair(model, kv_dtype)
+    name = "paged_attention_int8" if kv_dtype else "paged_attention"
+    rng = np.random.default_rng(4)
+    pps = model.max_seq_len // 16
+    entered = 0
+
+    def enter(slot):
+        nonlocal entered
+        prompt = rng.integers(0, 256, size=int(rng.integers(3, 60)))
+        sampling = (dict(_GREEDY, temperature=0.9, top_k=20) if entered % 2
+                    else _GREEDY)
+        outs = [e.prefill(prompt, 50, entered, sampling) for e in engines]
+        assert _same_prefill(*outs)
+        vec = 1 + slot * pps + np.arange(pps)
+        for e, out in zip(engines, outs):
+            e.insert(slot, out, vec, vec, sampling)
+        entered += 1
+
+    # Every graph captured before the ticks: a capture's warm run
+    # launches the kernels once, outside the replays counted here.
+    engines[0].warm(widths=[4, 8, 16, 32, 64])
+    for slot in range(3):
+        enter(slot)
+    launched = 0
+    for t in range(30):
+        before = tpa.launches[name]
+        got = engines[0].tick()
+        launched += tpa.launches[name] - before
+        want = engines[1].tick()
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(engines[0]._tk["logits"], engines[1]._tk["logits"])
+        if t % 4 == 3:
+            gone = np.zeros(4, bool)
+            gone[t % 3] = True
+            for e in engines:
+                e.evict(gone)
+            enter(t % 3)
+        if t == 10:
+            enter(3)
+    assert launched == model.num_layers * 30
+    assert engines[0].captures == 6 and engines[1].captures == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["", "int8"], ids=["bf16", "int8"])
+def test_prefill_graphs_equal_eager_prefill(kv_dtype):
+    """Each bucket's window graph (with the gather graph) against the
+    eager prefill: misses at every bucket, and prefix hits whose suffix
+    starts mid-cache; first token and dense cache bit for bit."""
+    dev = _card()
+    model = _serve_model(dev)
+    engines = _engine_pair(model, kv_dtype)
+    rng = np.random.default_rng(5)
+    root = rng.integers(0, 256, size=100)
+    vec = 1 + np.arange(model.max_seq_len // 16)
+    outs = [e.prefill(root, 4, 0, _GREEDY) for e in engines]
+    assert _same_prefill(*outs)
+    for e, out in zip(engines, outs):
+        e.insert(0, out, vec, vec, _GREEDY)
+    for n in (1, 2, 3, 5, 9, 17, 33, 65, 127):
+        prompt = rng.integers(0, 256, size=n)
+        outs = [e.prefill(prompt, 1, n, _GREEDY) for e in engines]
+        assert _same_prefill(*outs), n
+    for prefix_len, extra in ((16, 3), (48, 40), (64, 1), (80, 20)):
+        prompt = np.concatenate([root[:prefix_len],
+                                 rng.integers(0, 256, size=extra)])
+        kw = dict(prefix_len=prefix_len,
+                  gather_vec=vec[:-(-prefix_len // 16)])
+        outs = [e.prefill(prompt, 1, 7, dict(_GREEDY, temperature=0.8), **kw)
+                for e in engines]
+        assert _same_prefill(*outs), prefix_len
+    assert engines[0].captures == 8   # prefills at widths 1..128
+
+
+@pytest.mark.cuda
+def test_capture_after_warmup_raises_retrace_error():
+    from cloud_tpu_torch.serving import RetraceError, Scheduler, ServeRequest
+
+    dev = _card()
+    model = _serve_model(dev)
+    with Scheduler(model, slots=2, page_size=16, prefix_cache=False,
+                   strict_no_retrace=True) as sched:
+        sched.warmup([16])
+        ok = sched.submit(ServeRequest([5] * 12, 4, temperature=0.0))
+        assert ok.result(timeout=120).tokens.shape == (16,)
+        # Bucket 64 was not warmed: its window graph is captured now,
+        # and the tick loop's sentinel fails the loop.
+        late = sched.submit(ServeRequest([6] * 40, 4, temperature=0.0))
+        with pytest.raises(RetraceError):
+            late.result(timeout=120)
+    engine = _engine_pair(model, "")[0]
+    engine.warm(widths=[8])
+    engine.mark_warm()
+    engine.prefill([1] * 7, 2, 0, _GREEDY)
+    engine.check_no_retrace()
+    engine.prefill([1] * 20, 2, 0, _GREEDY)
+    with pytest.raises(RetraceError, match="captures"):
+        engine.check_no_retrace()
+
+
+# -- the decode block's kernels against their plain versions --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 1024])
+def test_add_layer_norm_kernel_equals_plain(rows):
+    """h bit-equal to x + r; y (bf16) within one rounding of the plain
+    f32 LayerNorm (rtol 2^-8 + atol 1e-5 rms(row))."""
+    from cloud_tpu_torch.ops import decode_block as db
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(rows)
+    x = (3.0 * torch.randn(rows, 768, generator=gen)).to(dev)
+    r = torch.randn(rows, 768, generator=gen).to(dev, torch.bfloat16)
+    w = (1.0 + 0.1 * torch.randn(768, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(768, generator=gen)).to(dev)
+    before = db.launches["add_layer_norm"]
+    y, h = db.add_layer_norm(x, r, w, b, 1e-5, torch.bfloat16)
+    assert db.launches["add_layer_norm"] == before + 1
+    plain, plain_h = db.add_layer_norm_reference(x, r, w, b, 1e-5,
+                                                 torch.float32)
+    assert torch.equal(h, plain_h)
+    rms = plain.square().mean(-1, keepdim=True).sqrt()
+    err = (y.float() - plain).abs()
+    assert bool((err <= 2.0 ** -8 * plain.abs() + 1e-5 * rms).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,start", [(4, 1008), (16, 0), (16, 512)])
+def test_window_attention_kernel_equals_plain(rows, start):
+    """bf16, GPT-2's heads over a 1024-position cache, q a strided view of
+    a q/k/v product: within rtol 2^-8 + atol 3e-2 rms(row) of the plain
+    version."""
+    from cloud_tpu_torch.ops import decode_block as db
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(rows + start)
+    cache = torch.randn(2, 1024, 12, 64, generator=gen).to(dev,
+                                                          torch.bfloat16)
+    q = torch.randn(rows, 3, 12, 64, generator=gen).to(dev,
+                                                       torch.bfloat16)[:, 0]
+    keys = torch.arange(1024, device=dev)
+    last = start + torch.arange(rows, device=dev)
+    bias = torch.where(keys[None, :] <= last[:, None], 0.0, -1e30)
+    before = db.launches["window_attention"]
+    out = db.window_attention(q, cache[0], cache[1], bias)
+    assert db.launches["window_attention"] == before + 1
+    plain = db.window_attention_reference(q, cache[0], cache[1], bias,
+                                          0.125).float()
+    rms = plain.square().mean(-1, keepdim=True).sqrt()
+    err = (out.float() - plain).abs()
+    assert bool((err <= 2.0 ** -8 * plain.abs() + 3e-2 * rms).all())
+
+
+@pytest.mark.cuda
+def test_int8_page_write_kernel_equals_plain():
+    """One position of 8 slots (one dead, one on a never-written page)
+    into int8 pages: pages and scales bit for bit."""
+    from cloud_tpu_torch.ops import decode_block as db
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(9)
+    pages = torch.randint(-127, 128, (2, 40, 16, 12, 64), generator=gen,
+                          dtype=torch.int8).to(dev)
+    scales = (0.02 * torch.rand(2, 40, 12, generator=gen)).to(dev)
+    scales[:, 5] = 0.0
+    kv = (2.0 * torch.randn(2, 8, 1, 12, 64, generator=gen)).to(
+        dev, torch.bfloat16)
+    phys = (1 + 4 * torch.arange(8))[:, None].to(dev)
+    phys[2, 0] = 5
+    off = torch.randint(0, 16, (8, 1), generator=gen).to(dev)
+    valid = torch.ones(8, 1, dtype=torch.bool, device=dev)
+    valid[3] = False
+    got = (pages.clone(), scales.clone())
+    want = (pages.clone(), scales.clone())
+    db.int8_page_write(*got, kv, phys, off, valid)
+    db.int8_page_write_reference(*want, kv, phys, off, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[1], scales)   # some scales grew
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+def test_page_gather_kernel_equals_plain(quantized):
+    """A hit's gather (plen 1000 of 1024, 16-token pages) from bf16 or
+    int8 pages: the dense cache bit for bit, zeros past plen."""
+    from cloud_tpu_torch.ops import decode_block as db
+
+    dev = _card()
+    gen = torch.Generator().manual_seed(11)
+    shape = (3, 2, 70, 16, 4, 64)
+    if quantized:
+        pages = torch.randint(-127, 128, shape, generator=gen,
+                              dtype=torch.int8).to(dev)
+        scales = (0.05 * torch.rand(3, 2, 70, 4, generator=gen)).to(dev)
+    else:
+        pages = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        scales = None
+    gvec = torch.randperm(70, generator=gen)[:64].to(dev)
+    plen = torch.tensor(1000, device=dev)
+    out = torch.full((3, 2, 1, 1024, 4, 64), 7.0, dtype=torch.bfloat16,
+                     device=dev)
+    want = torch.empty_like(out)
+    db.page_gather(pages, scales, gvec, plen, out)
+    db.page_gather_reference(pages, scales, gvec, plen, want)
+    assert torch.equal(out, want)
+    assert not out[:, :, :, 1000:].any()

@@ -118,6 +118,9 @@ def test_assert_drained_leaves_every_page_free(models):
         # One counted fetch per prefill (first token) and per tick.
         assert (runtime.transfer_stats()["d2h_fetches"] - fetches
                 >= 5 + sched.stats()["ticks"])
+        # The prefix cache (on by default, as JAX's) keeps the prompts'
+        # full pages; clearing it frees every page.
+        sched.assert_drained(clear_prefix=True)
         assert sched.pool.leak_report() == {}
         assert sched.pool.available() == sched.pool.capacity
         leaked = sched.pool.reserve(1)
@@ -127,13 +130,14 @@ def test_assert_drained_leaves_every_page_free(models):
 
 
 def test_unsupported_options_raise(models):
+    """The options still to port raise (the prefix cache, chunked
+    prefill and the retrace sentinel are ported: test_torch_prefix_cache
+    and test_torch_chunked_prefill)."""
     _, _, tmodel = models
-    for kwargs in (dict(prefix_cache=True), dict(spec_k=2),
-                   dict(draft_model=tmodel), dict(prefill_chunk=16),
+    for kwargs in (dict(spec_k=2), dict(draft_model=tmodel),
                    dict(host_tier=True), dict(ladder=(2, 4)),
                    dict(slo_ttft=0.5), dict(slots_max=8),
-                   dict(admission_model="m.json"),
-                   dict(strict_no_retrace=True)):
+                   dict(admission_model="m.json")):
         name = next(iter(kwargs))
         with pytest.raises(NotImplementedError, match=name):
             Scheduler(tmodel, slots=2, page_size=8, **kwargs)
@@ -142,10 +146,11 @@ def test_unsupported_options_raise(models):
     with pytest.raises(ValueError, match="kv_dtype"):
         Scheduler(tmodel, slots=2, page_size=8, kv_dtype="fp8")
     engine = Scheduler(tmodel, slots=2, page_size=8).engine
-    with pytest.raises(NotImplementedError, match="prefix"):
-        engine.prefill([1, 2, 3], 4, 0, dict(temperature=0.0, top_k=None,
-                                             top_p=None, eos_token=None),
-                       prefix_len=1)
+    greedy = dict(temperature=0.0, top_k=None, top_p=None, eos_token=None)
+    with pytest.raises(NotImplementedError, match="key_override"):
+        engine.prefill([1, 2, 3], 4, 0, greedy, key_override=(0, ()))
+    with pytest.raises(ValueError, match="gather_vec"):
+        engine.prefill([1, 2, 3], 4, 0, greedy, prefix_len=1)
     with pytest.raises(NotImplementedError):
         engine.resize(4, [0, 1, -1, -1])
 

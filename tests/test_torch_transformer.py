@@ -23,6 +23,7 @@ from cloud_tpu.models import transformer as jtf
 from cloud_tpu_torch.models import (TransformerLM, generate, params_from_flax,
                                     params_to_flax)
 from cloud_tpu_torch.models import transformer as ttf
+from cloud_tpu_torch.ops import decode_block
 
 TOL = 1e-5
 CFG = dict(vocab_size=64, num_layers=2, num_heads=4, d_model=64, d_ff=128,
@@ -164,7 +165,7 @@ def test_quantized_page_write_bitwise(jax_model):
     jp, js = jtf._quantized_page_write(
         jnp.asarray(pages), jnp.asarray(scales), jnp.asarray(x),
         jnp.asarray(phys), jnp.asarray(off))
-    tp, ts = ttf._quantized_page_write(
+    tp, ts = decode_block.int8_page_write_reference(
         torch.from_numpy(pages.copy()), torch.from_numpy(scales.copy()),
         torch.from_numpy(x), torch.from_numpy(phys), torch.from_numpy(off))
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
